@@ -1,0 +1,77 @@
+"""FlowLM: causal autoregressive backbone + flow head (port of
+``pocket_tts_tpu/models/flow_lm.py``).
+
+Per frame: input linear (latent 32 -> d_model) -> causal transformer over the
+dense KV cache -> LayerNorm -> EOS logit -> Gaussian noise (std sqrt(temp),
+optionally truncated) -> LSD Euler flow decode back to a latent.  The BOS
+input is the explicit ``bos_emb`` latent, not a NaN sentinel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pocket_tts_tpu_torch.config import Config
+from pocket_tts_tpu_torch.models import flow_mlp, transformer
+from pocket_tts_tpu_torch.ops.norms import layer_norm
+from pocket_tts_tpu_torch.ops.rope import rope_table
+
+
+def sample_noise(generator: torch.Generator, shape: tuple[int, ...], temp: float,
+                 noise_clamp: float | None, device: torch.device | str) -> torch.Tensor:
+    """Gaussian noise with std sqrt(temp); with ``noise_clamp`` set, truncated
+    to +-noise_clamp in absolute units (torch ``trunc_normal_(std=std, a=-c,
+    b=c)`` semantics) and clipped at the bound.  temp 0 gives exactly zero."""
+    std = float(temp) ** 0.5
+    if noise_clamp is None:
+        return torch.randn(shape, generator=generator, device=device) * std
+    bound = noise_clamp / max(std, 1e-12)
+    noise = torch.empty(shape, device=device)
+    torch.nn.init.trunc_normal_(noise, 0.0, 1.0, -bound, bound, generator=generator)
+    return (noise * std).clamp(-noise_clamp, noise_clamp)
+
+
+def embed_text(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Token-LUT embedding."""
+    return params["text_embed"][tokens.long()]
+
+
+def prefill(params: dict, cfg: Config, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            pos: torch.Tensor, embeddings: torch.Tensor, t_valid: torch.Tensor):
+    """Feed conditioning embeddings [B, T, d_model] through the backbone,
+    filling the KV cache in place.  Returns (k_cache, v_cache, new_pos)."""
+    tcfg = cfg.flow_lm.transformer
+    t = embeddings.shape[1]
+    positions = pos[:, None] + torch.arange(t, dtype=pos.dtype, device=pos.device)[None, :]
+    cos, sin = rope_table(positions, tcfg.head_dim, tcfg.max_period)
+    _, k_cache, v_cache = transformer.cache_forward(
+        params["tf"], tcfg.num_heads, k_cache, v_cache, pos, embeddings,
+        cos[:, :, None, :], sin[:, :, None, :], t_valid=t_valid)
+    return k_cache, v_cache, pos + t_valid.to(pos.dtype)
+
+
+def step(params: dict, cfg: Config, k_cache: torch.Tensor, v_cache: torch.Tensor,
+         pos: torch.Tensor, latent: torch.Tensor, noise: torch.Tensor,
+         t_emb_table: torch.Tensor, lsd_decode_steps: int):
+    """One autoregressive frame.  ``latent`` [B, ldim] is the previous latent
+    (``bos_emb`` on the first step), ``noise`` [B, ldim] pre-sampled.
+    Returns (next_latent, eos_logit [B], k_cache, v_cache, pos + 1); the cache
+    is written in place.  The EOS decision (logit > threshold) is the caller's."""
+    tcfg = cfg.flow_lm.transformer
+    w_in = params["input_w"]
+    x = (latent.to(w_in.dtype) @ w_in.T)[:, None, :]  # [B, 1, D]
+    cos, sin = rope_table(pos[:, None], tcfg.head_dim, tcfg.max_period)
+    y, k_cache, v_cache = transformer.cache_forward(
+        params["tf"], tcfg.num_heads, k_cache, v_cache, pos, x,
+        cos[:, :, None, :], sin[:, :, None, :])
+    h = layer_norm(y[:, -1], params["out_norm_w"], params["out_norm_b"], eps=1e-5).float()
+    eos_logit = h @ params["out_eos_w"][0] + params["out_eos_b"][0]
+    cond_emb = flow_mlp.embed_condition(params["flow"], h)
+    next_latent = flow_mlp.lsd_decode(params["flow"], cond_emb, t_emb_table, noise,
+                                      lsd_decode_steps)
+    return next_latent, eos_logit, k_cache, v_cache, pos + 1
+
+
+def denormalize(params: dict, latent: torch.Tensor) -> torch.Tensor:
+    """latent * emb_std + emb_mean before the Mimi decoder."""
+    return latent * params["emb_std"] + params["emb_mean"]

@@ -1,0 +1,89 @@
+"""Mimi codec, decode side (port of ``pocket_tts_tpu/models/mimi.py``).
+
+Streaming decode of denormalized 32-dim latents: 1x1 quantizer projection
+32 -> 512, depthwise transposed-conv upsample x16 (12.5 Hz -> 200 Hz),
+windowed decoder transformer over carried KV tails, SEANet decoder -> 1920
+samples of 24 kHz audio per latent frame.  The encoder (voice cloning) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pocket_tts_tpu_torch.config import MimiConfig
+from pocket_tts_tpu_torch.models import seanet, transformer
+from pocket_tts_tpu_torch.ops.conv import (
+    ConvSpec,
+    ConvTrSpec,
+    convtr_init_state,
+    streaming_conv_transpose1d,
+)
+from pocket_tts_tpu_torch.ops.rope import rope_table
+
+
+def specs(cfg: MimiConfig) -> dict:
+    stride = cfg.resample_stride
+    dim = cfg.seanet.dimension
+    return {
+        "quantizer": ConvSpec(cfg.quantizer.dimension, cfg.quantizer.output_dimension,
+                              1, bias=False),
+        "downsample": ConvSpec(dim, dim, 2 * stride, stride=stride, bias=False,
+                               pad_mode="replicate"),
+        "upsample": ConvTrSpec(dim, dim, 2 * stride, stride=stride, groups=dim, bias=False),
+    }
+
+
+class MimiPlans:
+    """Static layer plans and conv specs derived from config (the encoder
+    plan only lays out the encoder weights kept for voice cloning)."""
+
+    def __init__(self, cfg: MimiConfig):
+        self.cfg = cfg
+        self.encoder = seanet.encoder_plan(cfg.seanet)
+        self.decoder = seanet.decoder_plan(cfg.seanet)
+        self.specs = specs(cfg)
+
+
+def quantize(params: dict, latent_bct: torch.Tensor) -> torch.Tensor:
+    """1x1 conv 32 -> 512 (DummyQuantizer.output_proj)."""
+    w = params["quantizer_w"][:, :, 0]
+    return torch.einsum("bct,dc->bdt", latent_bct.to(w.dtype), w)
+
+
+def init_decode_state(plans: MimiPlans, batch: int, dtype=torch.float32,
+                      device: torch.device | str = "cpu") -> dict:
+    """Decoder streaming state: upsample partial, transformer KV tails (last
+    context - 1 positions), position cursor, SEANet conv tails."""
+    tcfg = plans.cfg.transformer
+    kc, vc = transformer.init_tail(tcfg.num_layers, batch, tcfg.context, tcfg.num_heads,
+                                   tcfg.head_dim, dtype, device)
+    return {
+        "up": convtr_init_state(plans.specs["upsample"], batch, dtype, device),
+        "kc": kc,
+        "vc": vc,
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "dec": seanet.init_state(plans.decoder, batch, dtype, device),
+    }
+
+
+def decode_step(params: dict, plans: MimiPlans, state: dict, latent_bct: torch.Tensor
+                ) -> tuple[torch.Tensor, dict]:
+    """Streaming decode of T' latent frames [B, ldim, T'] -> audio
+    [B, 1, T' * 1920] and the next state."""
+    tcfg = plans.cfg.transformer
+    x = quantize(params, latent_bct)
+    x, up_state = streaming_conv_transpose1d(plans.specs["upsample"], params["upsample_w"],
+                                             None, state["up"], x)
+    t200 = x.shape[-1]
+    positions = state["pos"][:, None] + torch.arange(t200, dtype=torch.int32,
+                                                     device=x.device)[None, :]
+    cos, sin = rope_table(positions, tcfg.head_dim, tcfg.max_period)
+    x, kc, vc = transformer.projected_tail_forward(
+        params["dec_tf"], tcfg, state["kc"], state["vc"], state["pos"], x,
+        cos[:, :, None, :], sin[:, :, None, :])
+    audio, dec_state = seanet.streaming_forward(plans.decoder, params["decoder"],
+                                                state["dec"], x)
+    new_state = {"up": up_state, "kc": kc, "vc": vc,
+                 "pos": state["pos"] + t200, "dec": dec_state}
+    return audio, new_state

@@ -1,0 +1,119 @@
+"""Streaming transformer over stacked layer parameters (port of
+``pocket_tts_tpu/models/transformer.py``).
+
+Pre-LN self-attention + exact-GELU FFN with bias-free linears; LayerScale
+(``ls1``/``ls2``) only where the parameters carry it (Mimi).  Parameters are a
+dict of tensors stacked on a leading layer axis; ``in_proj`` is ``[L, 3, E, E]``.
+
+* ``cache_forward`` — causal over a dense KV cache (FlowLM backbone).  The
+  cache is ``[L, B, S, H, D]`` and is updated in place.
+* ``tail_forward`` — sliding window over carried KV tails (Mimi decoder).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from pocket_tts_tpu_torch.ops.attention import (
+    cache_write,
+    causal_cache_attention,
+    prefill_write,
+    tail_attention,
+)
+from pocket_tts_tpu_torch.ops.norms import layer_norm
+from pocket_tts_tpu_torch.ops.rope import apply_rope
+
+
+def _layer(params: dict, i: int) -> dict:
+    return {k: v[i] for k, v in params.items()}
+
+
+def _qkv(p_layer: dict, x: torch.Tensor, n_heads: int, cos, sin):
+    b, t, e = x.shape
+    d = e // n_heads
+    xn = layer_norm(x, p_layer["norm1_w"], p_layer["norm1_b"], eps=1e-5)
+    w = p_layer["in_proj"]  # [3, E, E]
+    proj = torch.einsum("bte,kpe->btkp", xn.to(w.dtype), w)
+    proj = proj.reshape(b, t, 3, n_heads, d)
+    q, k, v = proj[:, :, 0], proj[:, :, 1], proj[:, :, 2]
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _post_attn(p_layer: dict, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    b, t = x.shape[:2]
+    attn_flat = attn.reshape(b, t, -1)
+    wo = p_layer["out_proj"]
+    update = attn_flat.to(wo.dtype) @ wo.T
+    if "ls1" in p_layer:
+        update = update * p_layer["ls1"].to(update.dtype)
+    x = x + update
+    xn = layer_norm(x, p_layer["norm2_w"], p_layer["norm2_b"], eps=1e-5)
+    w1, w2 = p_layer["ff1"], p_layer["ff2"]
+    h = F.gelu(xn.to(w1.dtype) @ w1.T, approximate="none")
+    update = h @ w2.to(h.dtype).T
+    if "ls2" in p_layer:
+        update = update * p_layer["ls2"].to(update.dtype)
+    return x + update
+
+
+def cache_forward(params: dict, n_heads: int, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  pos: torch.Tensor, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                  t_valid: torch.Tensor | None = None):
+    """Dense-cache causal transformer step over ``x`` [B, T, E] at positions
+    ``pos + i``.  ``k_cache``/``v_cache`` [L, B, S, H, D] (or a view of their
+    first S positions) are written in place; returns (y, k_cache, v_cache).
+    ``t_valid`` [B]: prefill widths (positions past them are not written)."""
+    for i in range(k_cache.shape[0]):
+        p_layer = _layer(params, i)
+        q, k, v = _qkv(p_layer, x, n_heads, cos, sin)
+        if t_valid is None:
+            cache_write(k_cache[i], k, pos)
+            cache_write(v_cache[i], v, pos)
+        else:
+            prefill_write(k_cache[i], k, pos, t_valid)
+            prefill_write(v_cache[i], v, pos, t_valid)
+        attn = causal_cache_attention(q, k_cache[i], v_cache[i], pos)
+        x = _post_attn(p_layer, x, attn)
+    return x, k_cache, v_cache
+
+
+def tail_forward(params: dict, n_heads: int, context: int, k_tail: torch.Tensor,
+                 v_tail: torch.Tensor, pos: torch.Tensor, x: torch.Tensor, cos, sin,
+                 block: int = 256):
+    """Sliding-window streaming step over carried KV tails [L, B, context-1, H, D];
+    returns (y, new_k_tail, new_v_tail)."""
+    kts, vts = [], []
+    for i in range(k_tail.shape[0]):
+        p_layer = _layer(params, i)
+        q, k, v = _qkv(p_layer, x, n_heads, cos, sin)
+        attn, kt, vt = tail_attention(q, k, v, k_tail[i], v_tail[i], pos, context, block=block)
+        x = _post_attn(p_layer, x, attn)
+        kts.append(kt)
+        vts.append(vt)
+    return x, torch.stack(kts), torch.stack(vts)
+
+
+def init_cache(n_layers: int, batch: int, capacity: int, n_heads: int, head_dim: int,
+               dtype=torch.float32, device: torch.device | str = "cpu"):
+    shape = (n_layers, batch, capacity, n_heads, head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_tail(n_layers: int, batch: int, context: int, n_heads: int, head_dim: int,
+              dtype=torch.float32, device: torch.device | str = "cpu"):
+    return init_cache(n_layers, batch, context - 1, n_heads, head_dim, dtype, device)
+
+
+def projected_tail_forward(p: dict, cfg, k_tail, v_tail, pos, x_bct: torch.Tensor, cos, sin):
+    """Mimi ProjectedTransformer over [B, C, T] with optional in/out projections."""
+    x = x_bct.transpose(1, 2)
+    if "input_proj" in p:
+        w_in = p["input_proj"]
+        x = x.to(w_in.dtype) @ w_in.T
+    y, k_tail, v_tail = tail_forward(p["layers"], cfg.num_heads, cfg.context, k_tail, v_tail,
+                                     pos, x, cos, sin)
+    if "output_proj" in p:
+        y = y @ p["output_proj"].T
+    return y.transpose(1, 2), k_tail, v_tail

@@ -1,0 +1,137 @@
+"""Attention over fixed-capacity KV buffers (port of
+``pocket_tts_tpu/ops/attention.py``; plain PyTorch, as the JAX package left
+this attention to XLA).
+
+* FlowLM: dense cache ``[B, S, H, D]`` per layer, cursor ``pos``; new KV is
+  written at ``pos..pos+T`` and key slot ``j`` is visible to the query at
+  absolute position ``p`` iff ``j <= p``.
+* Mimi: sliding window over a carried KV *tail* of the last ``context - 1``
+  positions (``tail_attention``).
+
+Softmax runs in float32.  Masked logits use ``-1e30``, not ``-inf``: padded
+query rows are fully masked, and ``-inf`` would turn them into NaN.
+
+Cache writes are in place: ``cache_write`` and ``prefill_write`` update the
+tensor they are given and return it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+_NEG = -1e30
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """q [B,T,H,D], k/v [B,S,H,D]; mask [B,1,T,S] or [1,1,T,S] bool.
+
+    K/V stored narrower than q are widened to q's dtype; logits and the
+    probability-weighted sum accumulate in float32 (bf16 products are exact
+    in f32), probabilities are rounded to v's dtype as in the JAX package.
+    """
+    if k.dtype != q.dtype:
+        k = k.to(q.dtype)
+    if v.dtype != q.dtype:
+        v = v.to(q.dtype)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    logits = torch.where(mask, logits, torch.full((), _NEG, device=logits.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhts,bshd->bthd", probs.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def cache_write(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Write ``new`` [B, T, H, D] into ``cache`` [B, S, H, D] at per-batch
+    offsets ``start`` [B].  Like ``lax.dynamic_update_slice``, a start that
+    would overrun the cache is clamped to ``S - T``."""
+    b, t = new.shape[:2]
+    s = cache.shape[1]
+    st = start.long().clamp(0, s - t)
+    idx = st[:, None] + torch.arange(t, device=cache.device)[None, :]
+    rows = torch.arange(b, device=cache.device)[:, None].expand(b, t)
+    cache[rows, idx] = new.to(cache.dtype)
+    return cache
+
+
+def prefill_write(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
+                  t_valid: torch.Tensor) -> torch.Tensor:
+    """Prefill write of ``new`` [B,T,H,D] at per-batch ``start``: only the
+    first ``t_valid[b]`` positions are written, the rest are DROPPED (never
+    clamped backward over live entries), as are positions past the cache."""
+    b, t = new.shape[:2]
+    s = cache.shape[1]
+    offs = torch.arange(t, device=cache.device)[None, :]
+    idx = start.long()[:, None] + offs
+    keep = (offs < t_valid.long()[:, None]) & (idx >= 0) & (idx < s)
+    rows = torch.arange(b, device=cache.device)[:, None].expand(b, t)
+    cache[rows[keep], idx[keep]] = new.to(cache.dtype)[keep]
+    return cache
+
+
+def causal_cache_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """Causal attention of ``q`` [B,T,H,D] (absolute positions ``pos + i``)
+    against the cache [B,S,H,D] (new keys already written at ``pos..``)."""
+    t = q.shape[1]
+    s = k_cache.shape[1]
+    q_pos = pos.long()[:, None] + torch.arange(t, device=q.device)[None, :]  # [B,T]
+    key_idx = torch.arange(s, device=q.device)[None, None, :]
+    mask = key_idx <= q_pos[:, :, None]  # [B,T,S]
+    return _sdpa(q, k_cache, v_cache, mask[:, None])
+
+
+def tail_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                   k_tail: torch.Tensor, v_tail: torch.Tensor, pos: torch.Tensor,
+                   context: int, block: int = 256
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sliding-window attention with a carried KV tail.
+
+    q/k_new/v_new: [B, T, H, D] at absolute positions ``pos + i``;
+    k_tail/v_tail: [B, P, H, D] with P = context - 1, holding positions
+    ``pos - P .. pos - 1`` (negative absolute positions are masked).
+    Returns (out, new_k_tail, new_v_tail).  Queries are processed in blocks
+    of ``block`` rows when T > block, each against its P + block keys.
+    """
+    b, t, h, d = q.shape
+    p = k_tail.shape[1]
+    if p != context - 1:
+        raise ValueError(f"tail length {p} != context - 1 = {context - 1}")
+    dev = q.device
+    k = torch.cat([k_tail, k_new.to(k_tail.dtype)], dim=1)
+    v = torch.cat([v_tail, v_new.to(v_tail.dtype)], dim=1)
+    new_k_tail, new_v_tail = k[:, -p:], v[:, -p:]
+    pos = pos.long()
+
+    if t <= block:
+        i = torch.arange(t, device=dev)
+        j = torch.arange(p + t, device=dev)
+        delta = (p + i)[:, None] - j[None, :]  # query abs - key abs
+        band = (delta >= 0) & (delta < context)  # [T, S]
+        valid = (pos[:, None] - p + j[None, :]) >= 0  # [B, S]
+        mask = band[None] & valid[:, None]
+        return _sdpa(q, k, v, mask[:, None]), new_k_tail, new_v_tail
+
+    t_real = t
+    if t % block:  # pad queries+keys; padded keys never enter the band of real rows
+        pad = block - t % block
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        t = q.shape[1]
+    span = p + block  # keys for query block qs: concat[qs : qs + P + block)
+    ii = torch.arange(block, device=dev)
+    jj = torch.arange(span, device=dev)
+    delta = (p + ii)[:, None] - jj[None, :]
+    band = (delta >= 0) & (delta < context)
+    outs = []
+    for qs in range(0, t, block):
+        valid = (pos[:, None] - p + qs + jj[None, :]) >= 0  # [B, span]
+        mask = band[None] & valid[:, None]
+        outs.append(_sdpa(q[:, qs:qs + block], k[:, qs:qs + span], v[:, qs:qs + span],
+                          mask[:, None]))
+    out = torch.cat(outs, dim=1)
+    return out[:, :t_real], new_k_tail, new_v_tail
