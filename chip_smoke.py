@@ -20,6 +20,15 @@ result line):
    the default EOS threshold.
 5. Reference: a few frames of the full-width model in float32 on the card
    against the same model on the CPU (plain versions everywhere).
+6. Voice: voice-conditioned synthesis on the same model.  A seeded synthetic
+   voice (harmonics with vibrato plus noise) written as a 16-bit stereo
+   44.1 kHz WAV goes through ``get_voice_state`` (WAV reader, resampler,
+   downmix, Mimi encoder, speaker projection, conditioning prefill) on the
+   card; the card's conditioning against the CPU's (f32, 2.5 s); the chunked
+   encoder (40 s, over the 30 s one-shot limit) against the one-shot encoder
+   on the card; ``overflow="compress"`` over the 768-frame budget; a voiced
+   ``generate`` with its kernel launch count checked; the ``audio_prompt``
+   file round trip; and ``generate_with_pauses`` with continuation.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -32,7 +41,10 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import wave
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,6 +54,12 @@ TEXT = ("The quick brown fox jumps over the lazy dog near the river bank. "
         "Each frame carries eighty milliseconds of sound.")
 KERNEL_TOL = 1e-4  # f32 sums in another order over six chained 512-wide products
 REF_TOL_LSB = 2  # int16 LSB: f32 on the card vs f32 on the CPU, after PCM rounding
+# voice conditioning, f32 both sides, TF32 off, sums in another order:
+# max abs err <= COND_TOL * max(1, max |reference|)
+COND_TOL = 1e-4
+VOICE_TEXT = "A cloned voice reads this short sentence aloud."
+PAUSE_HEAD = "The first half of the line."
+PAUSE_TEXT = PAUSE_HEAD + " [pause:500ms] And then the second half."
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -197,7 +215,7 @@ def phase_main_path():
     _require(c.size // model.frame_size <= budget, "default-EOS generate over budget")
     print(f"main path: default EOS threshold -4.0: {c.size // model.frame_size} frames "
           f"emitted of a {budget}-frame budget ({eng.frames_decoded} decoded)")
-    return launches, audio
+    return model, launches
 
 
 def phase_reference():
@@ -226,18 +244,182 @@ def phase_reference():
           f"(bound {REF_TOL_LSB}), audio std {outs[0].std():.1f} LSB")
 
 
+def _synthetic_voice(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """Seeded voice-like signal [2, T]: 8 harmonics of a 140 Hz fundamental
+    with 5.5 Hz vibrato, a syllable-rate envelope, and noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 140.0 * (1.0 + 0.03 * np.sin(2 * np.pi * 5.5 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(np.sin(k * phase) * 0.25 / k for k in range(1, 9))
+    x = x * (0.6 + 0.4 * np.sin(2 * np.pi * 3.0 * t)) + 0.02 * rng.standard_normal(t.size)
+    return np.stack([x, 0.9 * x + 0.01 * rng.standard_normal(t.size)]).astype(np.float32)
+
+
+def _cond_err(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    _require(got.shape == ref.shape, f"{what}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+    _require(bool(torch.isfinite(got).all()), f"{what}: non-finite conditioning")
+    ref = ref.to(got.device)
+    err = (got - ref).abs().max().item()
+    bound = COND_TOL * max(1.0, ref.abs().max().item())
+    _require(err <= bound, f"{what}: max abs err {err} > {bound}")
+    print(f"voice: {what}: max abs err {err:.3e} (bound {bound:.3e})")
+    return err
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_voice(model) -> int:
+    """Voice-conditioned synthesis on the card; returns the voiced run's
+    flow_blocks launch count."""
+    from pocket_tts_tpu_torch import audio, config, weights
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.models import flow_lm, mimi
+    from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams
+
+    eng, sr = model.engine, model.sample_rate
+    tmp = tempfile.TemporaryDirectory()
+    wav_path = Path(tmp.name) / "voice.wav"
+    pcm = (np.clip(_synthetic_voice(10.0, 44100, seed=0), -1, 1) * 32767).astype("<i2")
+    with wave.open(str(wav_path), "wb") as f:
+        f.setnchannels(2)
+        f.setsampwidth(2)
+        f.setframerate(44100)
+        f.writeframes(pcm.T.tobytes())
+    wav24 = audio.convert_audio(*audio.read_wav(wav_path), sr)[0]
+
+    # 1-2. WAV -> voice state on the card
+    vs, _ = _timed(lambda: model.get_voice_state(wav_path))
+    frames = -(-wav24.size // model.frame_size)
+    _require(all(t.is_cuda for t in (vs.kc, vs.vc, vs.pos)), "voice state not on cuda")
+    _require(vs.length == frames == int(vs.pos[0]),
+             f"voice length {vs.length} (pos {int(vs.pos[0])}) != ceil({wav24.size} / 1920)")
+    wav_ms = statistics.median(_timed(lambda: model.get_voice_state(wav_path))[1]
+                               for _ in range(5))
+    enc_ms = statistics.median(_timed(lambda: model.get_voice_state_from_audio(wav24))[1]
+                               for _ in range(5))
+    secs = wav24.size / sr
+    print(f"voice: 10 s stereo 44.1 kHz WAV -> {vs.length} frames on {vs.kc.device}; "
+          f"get_voice_state(wav path) {wav_ms:.1f} ms, encode+prefill {enc_ms:.1f} ms = "
+          f"{enc_ms / secs:.2f} ms per second of prompt (median of 5, synchronized)")
+
+    # 3. the card's conditioning against the CPU's, full width, f32
+    short = wav24[: int(2.5 * sr)]
+    cfg = config.load_variant()
+    cpu_eng = Engine(cfg, weights.load_params(cfg)[0], "cpu")
+    _cond_err(eng.encode_voice(short)[0], cpu_eng.encode_voice(short)[0],
+              "card vs CPU conditioning, 2.5 s prompt")
+    del cpu_eng
+
+    # 4. chunked encode (over the one-shot limit) against the one-shot encoder
+    rcfg = eng._rcfg
+    long40 = _synthetic_voice(40.0, sr, seed=1)[0]
+    _require(long40.size > rcfg.encode_seconds_buckets[-1] * sr, "40 s prompt not chunked")
+    torch.cuda.reset_peak_memory_stats()
+    (cond_c, n40), chunk_ms = _timed(lambda: eng.encode_voice(long40))
+    peak_c = torch.cuda.max_memory_allocated() / 2**30
+    x = torch.from_numpy(long40).to(eng.device).reshape(1, 1, -1)
+    torch.cuda.reset_peak_memory_stats()
+
+    def one_shot():
+        lat = mimi.encode_to_latent(eng.params["mimi"], eng.plans, x, block=rcfg.encoder_block)
+        return flow_lm.speaker_project(eng.params["flow_lm"], lat.transpose(1, 2))
+
+    cond_o, oneshot_ms = _timed(one_shot)
+    peak_o = torch.cuda.max_memory_allocated() / 2**30
+    _require(n40 == 500, f"40 s prompt gave {n40} frames")
+    _cond_err(cond_c, cond_o, f"chunked ({-(-n40 // rcfg.voice_prompt_chunk_frames)} chunks "
+              f"of {rcfg.voice_prompt_chunk_frames} frames) vs one-shot encode, 40 s prompt")
+    print(f"voice: 40 s encode: chunked {chunk_ms:.1f} ms (peak {peak_c:.2f} GiB), "
+          f"one-shot {oneshot_ms:.1f} ms (peak {peak_o:.2f} GiB)")
+    budget = rcfg.max_seq - eng.prompt_reserve
+    long64 = _synthetic_voice(64.0, sr, seed=2)[0]
+    torch.cuda.reset_peak_memory_stats()
+    vs_c, comp_ms = _timed(lambda: model.get_voice_state_from_audio(long64, overflow="compress"))
+    _require(vs_c.length == budget == int(vs_c.pos[0]),
+             f"compress: length {vs_c.length} != budget {budget}")
+    print(f"voice: overflow=compress, 64 s prompt (800 frames) -> {vs_c.length} frames = "
+          f"budget in {comp_ms:.1f} ms (peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+
+    # 5. voiced generate, every flow evaluation a kernel launch
+    lsd = model.gen.lsd_decode_steps
+    model.gen = GenParams(temp=0.7, eos_threshold=float("inf"), lsd_decode_steps=lsd)
+    fb.flow_blocks.launches = 0
+    eng.frames_decoded = 0
+    audio_v, dt = _timed(lambda: model.generate(TEXT, vs))
+    launches, decoded = fb.flow_blocks.launches, eng.frames_decoded
+    _require(decoded > 0 and launches == decoded * lsd,
+             f"voiced: flow_blocks launches {launches} != frames {decoded} x {lsd}")
+    _require(bool(np.isfinite(audio_v).all()) and audio_v.size % model.frame_size == 0,
+             "voiced: bad audio")
+    _require(float(audio_v.std()) > 0, "voiced: silent audio")
+    secs_v = audio_v.size / sr
+    print(f"voice: generate(TEXT, voice) {audio_v.size // model.frame_size} frames emitted, "
+          f"{decoded} decoded, flow_blocks launches {launches} = frames x {lsd}; "
+          f"{secs_v:.2f} s audio in {dt:.1f} ms: x-realtime {secs_v / dt * 1e3:.2f}, "
+          f"ms/frame {dt / decoded:.3f}")
+    stream = model.generate_stream(TEXT, vs)
+    first, first_ms = _timed(lambda: next(stream))
+    stream.close()
+    print(f"voice: generate_stream first chunk {first.size // model.frame_size} frames "
+          f"in {first_ms:.1f} ms")
+
+    model.gen = dataclasses.replace(model.gen, temp=0.0)
+    voiced = model.generate(VOICE_TEXT, vs)
+    empty = model.generate(VOICE_TEXT)
+    _require(voiced.shape == empty.shape, "voiced vs empty: frame budgets differ")
+    moved = int(np.abs(_pcm(voiced) - _pcm(empty)).max())
+    _require(moved > 2, f"voiced output equals the empty voice's (max {moved} LSB)")
+    print(f"voice: temp 0, voiced vs empty voice differ by up to {moved} int16 LSB")
+
+    # 6. audio_prompt file round trip
+    prompt = Path(tmp.name) / "voice.safetensors"
+    model.save_voice_prompt(wav24, prompt)
+    vs_p = model.get_voice_state(str(prompt))
+    _require(vs_p.length == vs.length, f"prompt file: length {vs_p.length} != {vs.length}")
+    from_file = model.generate(VOICE_TEXT, vs_p)
+    _require(from_file.shape == voiced.shape, "prompt file: shape")
+    lsb = int(np.abs(_pcm(from_file) - _pcm(voiced)).max())
+    _require(lsb <= 2, f"prompt-file voice vs WAV voice differ by {lsb} int16 LSB")
+    print(f"voice: save_voice_prompt -> get_voice_state(.safetensors) -> generate == WAV voice "
+          f"within {lsb} int16 LSB (bound 2)")
+
+    # 7. pauses with continuation
+    head = model.generate(PAUSE_HEAD, vs)
+    out = model.generate_with_pauses(PAUSE_TEXT, vs, continuation_frames=8)
+    gap = 500 * sr // 1000
+    _require(bool(np.isfinite(out).all()), "pauses: non-finite audio")
+    lsb = int(np.abs(_pcm(out[:head.size]) - _pcm(head)).max())
+    _require(lsb <= 2, f"pauses: first segment differs from its own generate by {lsb} LSB")
+    _require(bool(np.all(out[head.size:head.size + gap] == 0.0)), "pauses: silence not zero")
+    tail = out.size - head.size - gap
+    _require(tail > 0 and tail % model.frame_size == 0,
+             f"pauses: {tail} samples after the silence")
+    print(f"voice: generate_with_pauses(continuation_frames=8): {head.size} + {gap} zero + "
+          f"{tail} samples; silence exact, first segment within {lsb} LSB of its own generate")
+    tmp.cleanup()
+    return launches
+
+
 def main() -> None:
     kind = phase_environment()
     phase_build()
     dev = torch.device("cuda")
     kern = phase_kernel(dev)
-    launches, _ = phase_main_path()
+    model, launches = phase_main_path()
     phase_reference()
+    voice_launches = phase_voice(model)
     print(json.dumps({"kernels": [{
         "name": "flow_blocks", "route": "cuda",
         "source": "pocket_tts_tpu_torch/csrc/flow_blocks.cu",
         "replaces": "pocket_tts_tpu/ops/pallas/flow_kernel.py:107",
-        "launches": launches,
+        "launches": launches, "launches_voice": voice_launches,
         "max_abs_err": max(k["err"] for k in kern.values()),
         "ms": kern[1]["ms"], "plain_ms": kern[1]["plain_ms"],
         "ms_b16": kern[16]["ms"], "plain_ms_b16": kern[16]["plain_ms"],

@@ -75,3 +75,10 @@ def step(params: dict, cfg: Config, k_cache: torch.Tensor, v_cache: torch.Tensor
 def denormalize(params: dict, latent: torch.Tensor) -> torch.Tensor:
     """latent * emb_std + emb_mean before the Mimi decoder."""
     return latent * params["emb_std"] + params["emb_mean"]
+
+
+def speaker_project(params: dict, mimi_latent: torch.Tensor) -> torch.Tensor:
+    """Mimi latents [B, T, 512] -> speaker conditioning [B, T, d_model], in
+    float32 (``speaker_proj`` [d_model, 512] is kept in float32)."""
+    w = params["speaker_proj"]
+    return mimi_latent.to(w.dtype) @ w.T

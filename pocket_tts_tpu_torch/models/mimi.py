@@ -1,10 +1,15 @@
-"""Mimi codec, decode side (port of ``pocket_tts_tpu/models/mimi.py``).
+"""Mimi codec (port of ``pocket_tts_tpu/models/mimi.py``).
 
-Streaming decode of denormalized 32-dim latents: 1x1 quantizer projection
-32 -> 512, depthwise transposed-conv upsample x16 (12.5 Hz -> 200 Hz),
-windowed decoder transformer over carried KV tails, SEANet decoder -> 1920
-samples of 24 kHz audio per latent frame.  The encoder (voice cloning) is not
-ported yet.
+Encode (voice cloning): pad to a frame multiple -> SEANet encoder (24 kHz ->
+200 Hz x 512) -> windowed encoder transformer -> stride-16 ``replicate``
+downsample -> 512-dim latents at 12.5 Hz.  ``encode_to_latent`` takes the
+whole waveform; ``encode_step`` takes it in chunks with carried state and
+gives the same latents.
+
+Decode: streaming decode of denormalized 32-dim latents: 1x1 quantizer
+projection 32 -> 512, depthwise transposed-conv upsample x16 (12.5 Hz ->
+200 Hz), windowed decoder transformer over carried KV tails, SEANet decoder
+-> 1920 samples of 24 kHz audio per latent frame.
 """
 
 from __future__ import annotations
@@ -16,7 +21,11 @@ from pocket_tts_tpu_torch.models import seanet, transformer
 from pocket_tts_tpu_torch.ops.conv import (
     ConvSpec,
     ConvTrSpec,
+    batch_conv1d,
+    conv_init_state,
     convtr_init_state,
+    pad_for_frame,
+    streaming_conv1d,
     streaming_conv_transpose1d,
 )
 from pocket_tts_tpu_torch.ops.rope import rope_table
@@ -35,14 +44,70 @@ def specs(cfg: MimiConfig) -> dict:
 
 
 class MimiPlans:
-    """Static layer plans and conv specs derived from config (the encoder
-    plan only lays out the encoder weights kept for voice cloning)."""
+    """Static layer plans and conv specs derived from config."""
 
     def __init__(self, cfg: MimiConfig):
         self.cfg = cfg
         self.encoder = seanet.encoder_plan(cfg.seanet)
         self.decoder = seanet.decoder_plan(cfg.seanet)
         self.specs = specs(cfg)
+
+
+def encode_to_latent(params: dict, plans: MimiPlans, audio: torch.Tensor,
+                     block: int = 256) -> torch.Tensor:
+    """[B, 1, T] 24 kHz waveform -> [B, 512, ceil(T / 1920)] latents, from a
+    fresh state.  ``block``: query block of the encoder's banded attention."""
+    cfg = plans.cfg
+    tcfg = cfg.transformer
+    x = pad_for_frame(audio, cfg.frame_size)
+    emb = seanet.batch_forward(plans.encoder, params["encoder"], x)  # [B, 512, T200]
+    positions = torch.arange(emb.shape[-1], device=emb.device)
+    cos, sin = rope_table(positions, tcfg.head_dim, tcfg.max_period)
+    emb = transformer.projected_batch_forward(params["enc_tf"], tcfg, emb, cos, sin,
+                                              block=block)
+    return batch_conv1d(plans.specs["downsample"], params["downsample_w"], None, emb)
+
+
+def init_encode_state(plans: MimiPlans, batch: int, dtype=torch.float32,
+                      device: torch.device | str = "cpu") -> dict:
+    """Streaming-encode state: SEANet encoder conv tails, encoder-transformer
+    KV tails (last context - 1 positions), position cursor, and the
+    downsample conv tail with its ``first`` flag (``replicate`` pad)."""
+    tcfg = plans.cfg.transformer
+    kc, vc = transformer.init_tail(tcfg.num_layers, batch, tcfg.context, tcfg.num_heads,
+                                   tcfg.head_dim, dtype, device)
+    return {
+        "enc": seanet.init_state(plans.encoder, batch, dtype, device),
+        "kc": kc,
+        "vc": vc,
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "down": conv_init_state(plans.specs["downsample"], batch, dtype, device),
+    }
+
+
+def encode_step(params: dict, plans: MimiPlans, state: dict, audio: torch.Tensor
+                ) -> tuple[torch.Tensor, dict]:
+    """Streaming encode of one chunk [B, 1, C * 1920] -> ([B, 512, C], state).
+
+    The chunk length must be a multiple of the frame size, which keeps every
+    strided conv's phase aligned across chunks; chained from
+    ``init_encode_state`` the latents equal ``encode_to_latent`` of the whole
+    waveform."""
+    tcfg = plans.cfg.transformer
+    x, enc_state = seanet.streaming_forward(plans.encoder, params["encoder"], state["enc"],
+                                            audio)
+    t200 = x.shape[-1]
+    positions = state["pos"][:, None] + torch.arange(t200, dtype=torch.int32,
+                                                     device=x.device)[None, :]
+    cos, sin = rope_table(positions, tcfg.head_dim, tcfg.max_period)
+    x, kc, vc = transformer.projected_tail_forward(
+        params["enc_tf"], tcfg, state["kc"], state["vc"], state["pos"], x,
+        cos[:, :, None, :], sin[:, :, None, :])
+    lat, down_state = streaming_conv1d(plans.specs["downsample"], params["downsample_w"],
+                                       None, state["down"], x)
+    new_state = {"enc": enc_state, "kc": kc, "vc": vc, "pos": state["pos"] + t200,
+                 "down": down_state}
+    return lat, new_state
 
 
 def quantize(params: dict, latent_bct: torch.Tensor) -> torch.Tensor:

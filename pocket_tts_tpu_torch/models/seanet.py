@@ -1,11 +1,13 @@
-"""SEANet convolutional decoder (port of the decoder side of
+"""SEANet convolutional encoder and decoder (port of
 ``pocket_tts_tpu/models/seanet.py``).
 
-The decoder is an initial conv, then per ratio [ELU, transposed conv
-(k=2r, s=r), residual blocks], then ELU + final conv.  Residual blocks are
-[ELU, conv(k, dilated), ELU, conv(1x1)] with an identity skip.  Layer plans
-carry the torch ModuleList index of each layer so the checkpoint remap is
-mechanical.
+The encoder is an initial conv, then per ratio (reversed) [residual blocks,
+ELU, strided conv (k=2r, s=r) doubling the channels], then ELU + final conv
+to ``dimension``: 24 kHz audio -> 200 Hz features.  The decoder is an
+initial conv, then per ratio [ELU, transposed conv (k=2r, s=r), residual
+blocks], then ELU + final conv.  Residual blocks are [ELU, conv(k, dilated),
+ELU, conv(1x1)] with an identity skip.  Layer plans carry the torch
+ModuleList index of each layer so the checkpoint remap is mechanical.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from pocket_tts_tpu_torch.config import SEANetConfig
 from pocket_tts_tpu_torch.ops.conv import (
     ConvSpec,
     ConvTrSpec,
+    batch_conv1d,
+    batch_conv_transpose1d,
     conv_init_state,
     convtr_init_state,
     streaming_conv1d,
@@ -37,8 +41,7 @@ class Layer:
 
 
 def encoder_plan(cfg: SEANetConfig) -> list[Layer]:
-    """Encoder layer plan: only its parameter layout is used so far (the
-    checkpoint's encoder weights are loaded and kept for voice cloning)."""
+    """Encoder layer plan (voice cloning)."""
     layers: list[Layer] = []
     idx = 0
 
@@ -115,6 +118,24 @@ def init_state(plan: list[Layer], batch: int, dtype=torch.float32,
         else:
             states.append({})
     return states
+
+
+def batch_forward(plan: list[Layer], params: list, x: torch.Tensor) -> torch.Tensor:
+    """Whole-sequence forward from a fresh state (no carried conv tails)."""
+    for layer, p in zip(plan, params):
+        if layer.kind == "conv":
+            x = batch_conv1d(layer.spec, p["w"], p.get("b"), x)
+        elif layer.kind == "convtr":
+            x = batch_conv_transpose1d(layer.spec, p["w"], p.get("b"), x)
+        elif layer.kind == "res":
+            v = batch_conv1d(layer.res_specs[0], p["conv0"]["w"], p["conv0"].get("b"),
+                             F.elu(x))
+            v = batch_conv1d(layer.res_specs[1], p["conv1"]["w"], p["conv1"].get("b"),
+                             F.elu(v))
+            x = x + v
+        else:
+            x = F.elu(x)
+    return x
 
 
 def streaming_forward(plan: list[Layer], params: list, states: list, x: torch.Tensor

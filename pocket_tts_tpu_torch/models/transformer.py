@@ -7,7 +7,9 @@ dict of tensors stacked on a leading layer axis; ``in_proj`` is ``[L, 3, E, E]``
 
 * ``cache_forward`` — causal over a dense KV cache (FlowLM backbone).  The
   cache is ``[L, B, S, H, D]`` and is updated in place.
-* ``tail_forward`` — sliding window over carried KV tails (Mimi decoder).
+* ``tail_forward`` — sliding window over carried KV tails (Mimi decoder,
+  streaming encoder).
+* ``batch_forward`` — whole sequence from position 0 (Mimi batch encoder).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from pocket_tts_tpu_torch.ops.attention import (
+    banded_attention,
     cache_write,
     causal_cache_attention,
     prefill_write,
@@ -94,6 +97,16 @@ def tail_forward(params: dict, n_heads: int, context: int, k_tail: torch.Tensor,
     return x, torch.stack(kts), torch.stack(vts)
 
 
+def batch_forward(params: dict, n_heads: int, context: int | None, x: torch.Tensor,
+                  cos: torch.Tensor, sin: torch.Tensor, block: int = 256) -> torch.Tensor:
+    """Whole-sequence forward of ``x`` [B, T, E] from position 0 (no state)."""
+    for i in range(params["in_proj"].shape[0]):
+        p_layer = _layer(params, i)
+        q, k, v = _qkv(p_layer, x, n_heads, cos, sin)
+        x = _post_attn(p_layer, x, banded_attention(q, k, v, context, block=block))
+    return x
+
+
 def init_cache(n_layers: int, batch: int, capacity: int, n_heads: int, head_dim: int,
                dtype=torch.float32, device: torch.device | str = "cpu"):
     shape = (n_layers, batch, capacity, n_heads, head_dim)
@@ -106,14 +119,24 @@ def init_tail(n_layers: int, batch: int, context: int, n_heads: int, head_dim: i
     return init_cache(n_layers, batch, context - 1, n_heads, head_dim, dtype, device)
 
 
+def _project(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    if name not in p:
+        return x
+    w = p[name]
+    return x.to(w.dtype) @ w.T
+
+
+def projected_batch_forward(p: dict, cfg, x_bct: torch.Tensor, cos, sin,
+                            block: int = 256) -> torch.Tensor:
+    """Mimi ProjectedTransformer over [B, C, T] from position 0."""
+    x = _project(p, "input_proj", x_bct.transpose(1, 2))
+    y = batch_forward(p["layers"], cfg.num_heads, cfg.context, x, cos, sin, block=block)
+    return _project(p, "output_proj", y).transpose(1, 2)
+
+
 def projected_tail_forward(p: dict, cfg, k_tail, v_tail, pos, x_bct: torch.Tensor, cos, sin):
     """Mimi ProjectedTransformer over [B, C, T] with optional in/out projections."""
-    x = x_bct.transpose(1, 2)
-    if "input_proj" in p:
-        w_in = p["input_proj"]
-        x = x.to(w_in.dtype) @ w_in.T
+    x = _project(p, "input_proj", x_bct.transpose(1, 2))
     y, k_tail, v_tail = tail_forward(p["layers"], cfg.num_heads, cfg.context, k_tail, v_tail,
                                      pos, x, cos, sin)
-    if "output_proj" in p:
-        y = y @ p["output_proj"].T
-    return y.transpose(1, 2), k_tail, v_tail
+    return _project(p, "output_proj", y).transpose(1, 2), k_tail, v_tail

@@ -6,7 +6,9 @@ this attention to XLA).
   written at ``pos..pos+T`` and key slot ``j`` is visible to the query at
   absolute position ``p`` iff ``j <= p``.
 * Mimi: sliding window over a carried KV *tail* of the last ``context - 1``
-  positions (``tail_attention``).
+  positions (``tail_attention``), or over a whole sequence from position 0
+  (``banded_attention``, the batch encoder).  Both run long inputs as query
+  blocks batched into one ``_sdpa`` call.
 
 Softmax runs in float32.  Masked logits use ``-1e30``, not ``-inf``: padded
 query rows are fully masked, and ``-inf`` would turn them into NaN.
@@ -115,23 +117,77 @@ def tail_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
         mask = band[None] & valid[:, None]
         return _sdpa(q, k, v, mask[:, None]), new_k_tail, new_v_tail
 
-    t_real = t
-    if t % block:  # pad queries+keys; padded keys never enter the band of real rows
-        pad = block - t % block
-        q = F.pad(q, (0, 0, 0, 0, 0, pad))
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        t = q.shape[1]
+    q, k, v = _pad_rows(q, k, v, block)
     span = p + block  # keys for query block qs: concat[qs : qs + P + block)
+    n = q.shape[1] // block
     ii = torch.arange(block, device=dev)
     jj = torch.arange(span, device=dev)
     delta = (p + ii)[:, None] - jj[None, :]
-    band = (delta >= 0) & (delta < context)
-    outs = []
-    for qs in range(0, t, block):
-        valid = (pos[:, None] - p + qs + jj[None, :]) >= 0  # [B, span]
-        mask = band[None] & valid[:, None]
-        outs.append(_sdpa(q[:, qs:qs + block], k[:, qs:qs + span], v[:, qs:qs + span],
-                          mask[:, None]))
-    out = torch.cat(outs, dim=1)
-    return out[:, :t_real], new_k_tail, new_v_tail
+    band = (delta >= 0) & (delta < context)  # [block, span]
+    qs = torch.arange(n, device=dev)[:, None] * block
+    valid = (pos[:, None, None] - p + qs[None] + jj) >= 0  # [B, n, span]
+    mask = band[None, None] & valid[:, :, None, :]
+    return _blocked_sdpa(q, k, v, block, mask)[:, :t], new_k_tail, new_v_tail
+
+
+def _pad_rows(q, k, v, block: int):
+    """Right-pad q, k and v [B, *, H, D] by the same count so q's rows are a
+    multiple of ``block``; padded keys lie after every real query, outside its
+    causal band."""
+    pad = (-q.shape[1]) % block
+    if not pad:
+        return q, k, v
+    return tuple(F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
+
+
+def _blocked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block: int,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Query block i of ``q`` [B, n*block, H, D] attends the keys
+    ``k[:, i*block : i*block + span]`` (k/v [B, (n-1)*block + span, H, D])
+    under ``mask`` [B or 1, n, block, span].  All n blocks go through one
+    ``_sdpa`` call, batched as B*n rows: the score tile is
+    [B*n, H, block, span], never O(T²)."""
+    b, t, h, d = q.shape
+    n = t // block
+    span = mask.shape[-1]
+
+    def windows(x):  # [B, L, H, D] -> [B*n, span, H, D]
+        return x.unfold(1, span, block).permute(0, 1, 4, 2, 3).reshape(b * n, span, h, d)
+
+    mask = mask.expand(b, n, block, span).reshape(b * n, 1, block, span)
+    out = _sdpa(q.reshape(b * n, block, h, d), windows(k), windows(v), mask)
+    return out.reshape(b, t, h, d)
+
+
+def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     context: int | None, block: int = 256) -> torch.Tensor:
+    """Whole-sequence causal attention from position 0, with an optional
+    sliding window of ``context`` keys (Mimi encoder).  q/k/v [B, T, H, D].
+
+    Up to one block (or without a window) it is one masked ``_sdpa``.
+    Otherwise T is padded to a block multiple and keys are padded on the left
+    by ``ctx_pad`` (the context rounded up to a block), so query block i
+    attends ``ctx_pad + block`` keys starting ``ctx_pad`` before it."""
+    t = q.shape[1]
+    dev = q.device
+    if context is None or t <= block:
+        idx = torch.arange(t, device=dev)
+        delta = idx[:, None] - idx[None, :]
+        mask = delta >= 0
+        if context is not None:
+            mask &= delta < context
+        return _sdpa(q, k, v, mask[None, None])
+
+    q, k, v = _pad_rows(q, k, v, block)
+    n = q.shape[1] // block
+    ctx_pad = -(-context // block) * block
+    k = F.pad(k, (0, 0, 0, 0, ctx_pad, 0))
+    v = F.pad(v, (0, 0, 0, 0, ctx_pad, 0))
+    span = ctx_pad + block
+    ii = torch.arange(block, device=dev)
+    jj = torch.arange(span, device=dev)
+    delta = (ctx_pad + ii)[:, None] - jj[None, :]  # query pos - key pos
+    band = (delta >= 0) & (delta < context)  # [block, span]
+    k_pos = (torch.arange(n, device=dev) * block)[:, None] - ctx_pad + jj  # [n, span]
+    mask = band[None] & (k_pos >= 0)[:, None, :]
+    return _blocked_sdpa(q, k, v, block, mask[None])[:, :t]

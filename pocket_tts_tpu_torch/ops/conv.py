@@ -5,6 +5,9 @@ Weights keep the checkpoint (torch) layouts: Conv1d ``[out, in/groups, K]``,
 ConvTranspose1d ``[in, out/groups, K]``; ``F.conv_transpose1d`` takes the
 latter directly.
 
+The batch forms (``batch_conv1d``, ``batch_conv_transpose1d``) give the
+output of the streaming forms run from a fresh state over the whole sequence.
+
 Streaming semantics follow the reference exactly:
 
 * ``streaming_conv1d`` keeps the last ``K_eff - S`` input frames as ``prev``
@@ -106,6 +109,21 @@ def streaming_conv1d(spec: ConvSpec, w: torch.Tensor, b: torch.Tensor | None, st
     return y, new_state
 
 
+def batch_conv1d(spec: ConvSpec, w: torch.Tensor, b: torch.Tensor | None,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Whole-sequence conv from a fresh state: left pad of ``state_len`` zeros,
+    or of the first frame repeated in ``replicate`` mode."""
+    x = x.to(w.dtype)
+    p = spec.state_len
+    if p > 0:
+        if spec.pad_mode == "replicate":
+            pad = x[..., :1].expand(*x.shape[:-1], p)
+        else:
+            pad = x.new_zeros((*x.shape[:-1], p))
+        x = torch.cat([pad, x], dim=-1)
+    return conv1d(x, w, b, stride=spec.stride, dilation=spec.dilation, groups=spec.groups)
+
+
 def convtr_init_state(spec: ConvTrSpec, batch: int, dtype=torch.float32,
                       device: torch.device | str = "cpu") -> dict:
     return {"partial": torch.zeros((batch, spec.out_channels, spec.state_len), dtype=dtype,
@@ -124,3 +142,18 @@ def streaming_conv_transpose1d(spec: ConvTrSpec, w: torch.Tensor, b: torch.Tenso
     if b is not None:
         tail = tail - b.to(tail.dtype)[None, :, None]
     return y[..., :-pt], {"partial": tail}
+
+
+def batch_conv_transpose1d(spec: ConvTrSpec, w: torch.Tensor, b: torch.Tensor | None,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Whole-sequence transposed conv with the streaming edge behaviour: zero
+    initial partial, trailing ``K - S`` samples dropped."""
+    y = conv_transpose1d(x, w, b, stride=spec.stride, groups=spec.groups)
+    pt = spec.state_len
+    return y[..., :-pt] if pt > 0 else y
+
+
+def pad_for_frame(x: torch.Tensor, frame_size: int) -> torch.Tensor:
+    """Right-pad [B, C, T] with zeros to a multiple of ``frame_size``."""
+    extra = (-x.shape[-1]) % frame_size
+    return F.pad(x, (0, extra)) if extra else x

@@ -10,11 +10,15 @@ of ``pocket_tts_tpu/runtime/engine.py``).
   reads audio and EOS flags once per chunk.
 * Text prefill is bucketed on length (right-padded; padded positions are
   never written to the cache).
+* Voice prompts go through the Mimi encoder and the speaker projection
+  (``encode_voice``) and are prefilled as conditioning
+  (``prefill_conditioning``), unpadded.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
@@ -22,6 +26,9 @@ import torch
 from pocket_tts_tpu_torch.config import Config
 from pocket_tts_tpu_torch.models import flow_lm, flow_mlp, mimi, transformer
 from pocket_tts_tpu_torch.models.mimi import MimiPlans
+from pocket_tts_tpu_torch.ops.conv import pad_for_frame
+
+logger = logging.getLogger(__name__)
 
 
 def _bucket(n: int, buckets: tuple[int, ...]) -> int:
@@ -98,10 +105,11 @@ class Engine:
         if rcfg.transport_format != "int16":
             raise NotImplementedError(
                 f"transport_format={rcfg.transport_format!r} is not ported yet")
-        # The codec runs in float32 on every device: in bf16 its audio output
-        # keeps 8 mantissa bits (up to 64 int16 LSB at half scale), and the
-        # chunk grouping alone moved samples by 32 LSB between generate and
-        # generate_stream on an H100; in float32 they agree within 2 LSB.
+        # The codec (decoder and voice encoder) runs in float32 on every
+        # device: in bf16 its audio output keeps 8 mantissa bits (up to 64
+        # int16 LSB at half scale), and the chunk grouping alone moved
+        # samples by 32 LSB between generate and generate_stream on an H100;
+        # in float32 they agree within 2 LSB.
         self.codec_dtype = torch.float32
         self.params = place_params(params, self.device, self.dtype, self.codec_dtype)
         # autoregressive frames computed by decode_frames (overshoot included)
@@ -145,6 +153,72 @@ class Engine:
         kc, vc, pos = flow_lm.prefill(params, self.cfg, state["kc"], state["vc"],
                                       state["pos"], emb, t_valid)
         return {**state, "kc": kc, "vc": vc, "pos": pos}
+
+    def prefill_conditioning(self, state: dict, cond: torch.Tensor, n_valid: int) -> dict:
+        """Prefill the first ``n_valid`` frames of speaker conditioning
+        ``cond`` [B, T, d_model] (float32; cast here to the backbone dtype)."""
+        b = cond.shape[0]
+        t_valid = torch.full((b,), n_valid, dtype=torch.int32, device=self.device)
+        kc, vc, pos = flow_lm.prefill(self.params["flow_lm"], self.cfg, state["kc"],
+                                      state["vc"], state["pos"], cond.to(self.dtype), t_valid)
+        return {**state, "kc": kc, "vc": vc, "pos": pos}
+
+    # -- voice encoding ----------------------------------------------------
+
+    @property
+    def prompt_reserve(self) -> int:
+        """Cache positions held back from voice conditioning: room for a text
+        segment plus a typical generated segment (~15 s)."""
+        return max(self._rcfg.text_buckets) + 192
+
+    def _encode(self, audio: torch.Tensor) -> torch.Tensor:
+        lat = mimi.encode_to_latent(self.params["mimi"], self.plans, audio,
+                                    block=self._rcfg.encoder_block)
+        return flow_lm.speaker_project(self.params["flow_lm"], lat.transpose(1, 2))
+
+    def encode_voice(self, audio, cap: bool = True) -> tuple[torch.Tensor, int]:
+        """24 kHz mono waveform [T] or [1, T] -> (conditioning
+        [1, n_frames, d_model] float32 on the device, n_frames), with
+        n_frames = ceil(T / 1920).
+
+        Prompts up to the largest ``encode_seconds_buckets`` entry run one
+        batch encode of the frame-padded waveform; longer ones run
+        ``mimi.encode_step`` over ``voice_prompt_chunk_frames``-frame chunks
+        with carried state, which bounds the encoder's memory.  Unlike the
+        JAX package, nothing is padded to a bucket: the encoder is causal, so
+        padding changed no valid frame there, and here the output holds
+        exactly the valid frames.
+
+        ``cap`` truncates the prompt to the cache budget (``max_seq`` minus
+        ``prompt_reserve``) with a warning; ``cap=False`` encodes it whole."""
+        audio = torch.as_tensor(np.asarray(audio, np.float32).reshape(1, 1, -1))
+        max_frames = self._rcfg.max_seq - self.prompt_reserve
+        if max_frames <= 0:
+            raise ValueError(
+                f"max_seq={self._rcfg.max_seq} leaves no room for voice prompts after "
+                f"the generation reserve ({self.prompt_reserve} frames)")
+        if cap and audio.shape[-1] > max_frames * self.frame_size:
+            logger.warning("voice prompt %0.1f s exceeds the cache budget (%d frames); "
+                           "truncating", audio.shape[-1] / self.cfg.mimi.sample_rate,
+                           max_frames)
+            audio = audio[..., : max_frames * self.frame_size]
+        n_frames = -(-audio.shape[-1] // self.frame_size)
+        audio = audio.to(device=self.device, dtype=self.codec_dtype)
+        one_shot = int(self._rcfg.encode_seconds_buckets[-1] * self.cfg.mimi.sample_rate)
+        if audio.shape[-1] <= one_shot:
+            return self._encode(audio), n_frames
+        return self._encode_chunked(audio), n_frames
+
+    def _encode_chunked(self, audio: torch.Tensor) -> torch.Tensor:
+        audio = pad_for_frame(audio, self.frame_size)
+        samples = max(1, self._rcfg.voice_prompt_chunk_frames) * self.frame_size
+        state = mimi.init_encode_state(self.plans, 1, self.codec_dtype, self.device)
+        conds = []
+        for start in range(0, audio.shape[-1], samples):
+            lat, state = mimi.encode_step(self.params["mimi"], self.plans, state,
+                                          audio[..., start:start + samples])
+            conds.append(flow_lm.speaker_project(self.params["flow_lm"], lat.transpose(1, 2)))
+        return torch.cat(conds, dim=1)
 
     # -- decode ------------------------------------------------------------
 

@@ -1,11 +1,13 @@
 """TTSModel — the public orchestrator (port of ``pocket_tts_tpu/tts.py``,
-single-stream synthesis with the empty voice on the chunk schedule).
+single-stream synthesis on the chunk schedule).
 
-``load`` / ``load_with_params`` / ``get_voice_state`` / ``generate`` /
-``generate_stream``.  Host-side orchestration only: all compute is enqueued
-by ``runtime.Engine`` on the model's device.  A voice state is a snapshot of
-the FlowLM KV cache after conditioning prefill; every text segment restarts
-from a copy of it.
+``load`` / ``load_with_params`` / ``get_voice_state*`` / ``save_voice_prompt``
+/ ``extend_voice_state`` / ``generate`` / ``generate_stream`` /
+``generate_with_pauses`` / ``generate_stream_long``.  Host-side orchestration
+only: all compute is enqueued by ``runtime.Engine`` on the model's device.  A
+voice state is a snapshot of the FlowLM KV cache after conditioning prefill
+(the Mimi-encoded, speaker-projected voice prompt); every text segment
+restarts from a copy of it.
 """
 
 from __future__ import annotations
@@ -14,11 +16,14 @@ import dataclasses
 import logging
 import os
 import time
+from pathlib import Path
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from pocket_tts_tpu_torch import audio as audio_io
+from pocket_tts_tpu_torch import pause as pause_mod
 from pocket_tts_tpu_torch import text as text_mod
 from pocket_tts_tpu_torch import weights as weights_mod
 from pocket_tts_tpu_torch.config import (
@@ -106,15 +111,125 @@ class TTSModel:
 
     # -- voice states ------------------------------------------------------
 
-    def get_voice_state(self, source=None) -> VoiceState:
-        """The unconditioned (empty) voice state, built once and shared: it is
-        never written (segments decode from copies)."""
+    def get_voice_state(self, source: str | Path | bytes | None = None,
+                        truncate: bool = False, overflow: str | None = None) -> VoiceState:
+        """Voice state from ``source``, or the unconditioned (empty) state.
+
+        ``source`` may be a WAV path or WAV bytes (Mimi encoder, speaker
+        projection, conditioning prefill) or an ``audio_prompt`` safetensors
+        path (the stock-voice format).  ``truncate`` keeps the first 30 s of
+        a WAV; ``overflow`` is the over-budget policy of
+        ``get_voice_state_from_audio``.  The empty state is built once and
+        shared: it is never written (segments decode from copies)."""
         if source is not None:
-            raise NotImplementedError("voice cloning (Mimi encoder) is not ported yet")
+            if isinstance(source, (str, Path)) and str(source).endswith(".safetensors"):
+                return self.get_voice_state_from_prompt_file(source)
+            return self.get_voice_state_from_wav(source, truncate=truncate, overflow=overflow)
         if self._empty_voice is None:
             st = self.engine.new_state()
             self._empty_voice = VoiceState(st["kc"], st["vc"], st["pos"], 0)
         return self._empty_voice
+
+    def get_voice_state_from_wav(self, path: str | Path | bytes, truncate: bool = False,
+                                 overflow: str | None = None) -> VoiceState:
+        wav, sr = audio_io.read_wav(path)
+        if truncate:
+            wav = wav[..., : 30 * sr]
+        wav = audio_io.convert_audio(wav, sr, self.sample_rate, 1)
+        return self.get_voice_state_from_audio(wav, overflow=overflow)
+
+    def get_voice_state_from_audio(self, wav: np.ndarray,
+                                   overflow: str | None = None) -> VoiceState:
+        """24 kHz mono waveform -> voice state.
+
+        ``overflow`` sets what happens to a prompt longer than the cache
+        budget (``max_seq`` minus ``engine.prompt_reserve``, 768 frames or
+        61.44 s at the default 1024):
+
+        * ``"truncate"``: keep the head of the prompt.
+        * ``"compress"``: encode the whole prompt, then keep its first
+          budget/4 frames (the speaker's onset) and its most recent
+          3·budget/4 frames, prefilled contiguously.
+
+        ``None`` reads ``POCKET_TTS_VOICE_OVERFLOW`` (default "truncate")."""
+        if overflow is None:
+            overflow = os.environ.get("POCKET_TTS_VOICE_OVERFLOW", "truncate")
+        if overflow not in ("truncate", "compress"):
+            raise ValueError(f"overflow must be 'truncate' or 'compress', got {overflow!r}")
+        eng = self.engine
+        cond, n_frames = eng.encode_voice(wav, cap=overflow == "truncate")
+        budget = eng._rcfg.max_seq - eng.prompt_reserve
+        if overflow == "compress" and n_frames > budget:
+            sink = budget // 4
+            cond = torch.cat([cond[:, :sink], cond[:, n_frames - (budget - sink):]], dim=1)
+            logger.info("voice prompt %d frames > %d budget: compressed to %d-frame sink + "
+                        "%d-frame recency", n_frames, budget, sink, budget - sink)
+            n_frames = budget
+        return self._prefill_voice(cond, n_frames)
+
+    def get_voice_state_from_prompt(self, prompt) -> VoiceState:
+        """From a precomputed ``audio_prompt`` conditioning [1, T, d_model] or
+        [T, d_model] (numpy or tensor), the stock-voice format."""
+        prompt = torch.as_tensor(np.asarray(prompt, np.float32))
+        if prompt.dim() == 2:
+            prompt = prompt[None]
+        return self._prefill_voice(prompt.to(self.device), prompt.shape[1])
+
+    def get_voice_state_from_prompt_file(self, path: str | Path) -> VoiceState:
+        return self.get_voice_state_from_prompt(
+            weights_mod.read_safetensors(path)["audio_prompt"])
+
+    def save_voice_prompt(self, wav: np.ndarray, path: str | Path) -> None:
+        """Encode a 24 kHz waveform and save its conditioning as an
+        ``audio_prompt`` safetensors file (float32 [1, frames, d_model]),
+        loadable with ``get_voice_state``."""
+        cond, _ = self.engine.encode_voice(wav)
+        weights_mod.write_safetensors({"audio_prompt": cond.float().cpu().numpy()}, path)
+
+    def _prefill_voice(self, cond: torch.Tensor, n_frames: int,
+                       base: VoiceState | None = None) -> VoiceState:
+        """Prefill ``cond`` [1, n_frames, d_model] into a fresh cache, or into
+        a copy of ``base``'s (prefill writes in place; a voice state is never
+        written).  Conditioning over the room left beside the generation
+        reserve is clipped to its most recent frames; the rest is prefilled
+        in pieces of ``max(prompt_buckets)`` frames, whose positions continue
+        from the cursor, so the pieces equal one prefill."""
+        eng = self.engine
+        if base is None:
+            st, base_len = eng.new_state(), 0
+        else:
+            st = {k: v.clone() for k, v in base.as_dict().items()}
+            base_len = base.length
+        room = max(0, eng._rcfg.max_seq - eng.prompt_reserve - base_len)
+        if n_frames > room:
+            logger.warning(
+                "voice conditioning (%d frames) exceeds the %d-position cache budget; "
+                "keeping the most recent %d frames (load with max_seq=<bigger> for "
+                "longer prompts)", n_frames, eng._rcfg.max_seq, room)
+            cond = cond[:, n_frames - room: n_frames]
+            n_frames = room
+        piece = max(eng._rcfg.prompt_buckets)
+        for off in range(0, n_frames, piece):
+            n = min(piece, n_frames - off)
+            st = eng.prefill_conditioning(st, cond[:, off:off + n], n)
+        return VoiceState(st["kc"], st["vc"], st["pos"], base_len + n_frames)
+
+    def extend_voice_state(self, voice_state: VoiceState, wav: np.ndarray) -> VoiceState:
+        """Prefill the conditioning of ``wav`` (24 kHz mono) after the
+        snapshot's, as if the voice prompt had been that much longer; the
+        snapshot itself is not written.  Conditioning over the remaining
+        budget is clipped to its most recent frames; with no room left the
+        snapshot is returned unchanged."""
+        eng = self.engine
+        room = eng._rcfg.max_seq - eng.prompt_reserve - voice_state.length
+        if room <= 0:
+            logger.warning("voice state (%d frames) already fills the cache budget; "
+                           "skipping continuation conditioning", voice_state.length)
+            return voice_state
+        cond, n_frames = eng.encode_voice(wav)
+        if n_frames > room:
+            cond, n_frames = cond[:, n_frames - room:], room
+        return self._prefill_voice(cond, n_frames, base=voice_state)
 
     # -- generation --------------------------------------------------------
 
@@ -126,25 +241,65 @@ class TTSModel:
         return text_mod.split_into_best_sentences(self.tokenizer, text)
 
     def generate(self, text: str, voice_state: VoiceState | None = None,
-                 frames_after_eos: int | None = None) -> np.ndarray:
+                 frames_after_eos: int | None = None, *,
+                 continuation_frames: int = 0) -> np.ndarray:
         """Synthesize ``text`` -> float32 waveform [samples] @ 24 kHz.
         ``frames_after_eos``: extra frames after EOS; None derives it from the
         text length (1-3 frames + 2)."""
         chunks = list(self.generate_stream(text, voice_state, frames_after_eos,
-                                           low_latency=False))
+                                           low_latency=False,
+                                           continuation_frames=continuation_frames))
         return np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
 
     def generate_stream(self, text: str, voice_state: VoiceState | None = None,
                         frames_after_eos: int | None = None, *,
-                        low_latency: bool = True) -> Iterator[np.ndarray]:
+                        low_latency: bool = True, continuation_frames: int = 0,
+                        _tail: dict | None = None) -> Iterator[np.ndarray]:
         """Stream float32 audio chunks.  Text is split into <= 50-token
         sentence chunks; each restarts from the voice state.
         ``low_latency=False`` skips the warm-up chunk ramp; the audio is the
-        same either way."""
+        same either way.
+
+        ``continuation_frames`` > 0: each segment after the first is
+        conditioned on the last N frames of audio generated so far,
+        re-encoded and prefilled on top of the voice state, so prosody
+        carries across segment boundaries.  Such segments run one after
+        another.  ``_tail`` ({"audio": array}) carries that tail in from and
+        out to the caller (``generate_stream_long`` bridges pauses with it)."""
         if voice_state is None:
             voice_state = self.get_voice_state()
         chunks = text_mod.split_into_best_sentences(self.tokenizer, text)
-        yield from self._run_segments(chunks, voice_state, frames_after_eos, low_latency)
+        if continuation_frames > 0 and (len(chunks) > 1 or _tail is not None):
+            yield from self._run_segments_continuation(
+                chunks, voice_state, frames_after_eos, low_latency, continuation_frames, _tail)
+        else:
+            yield from self._run_segments(chunks, voice_state, frames_after_eos, low_latency)
+
+    def generate_with_pauses(self, text: str, voice_state: VoiceState | None = None, *,
+                             continuation_frames: int = 0) -> np.ndarray:
+        chunks = list(self.generate_stream_long(text, voice_state, low_latency=False,
+                                                continuation_frames=continuation_frames))
+        return np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+
+    def generate_stream_long(self, text: str, voice_state: VoiceState | None = None,
+                             frames_after_eos: int | None = None, *,
+                             low_latency: bool = True,
+                             continuation_frames: int = 0) -> Iterator[np.ndarray]:
+        """Pause-aware streaming: text segments interleaved with exact
+        silence for ``[pause:Xms]`` markers, ellipses and commas.  One
+        continuation tail spans the whole utterance, so conditioning carries
+        across the pauses."""
+        if voice_state is None:
+            voice_state = self.get_voice_state()
+        tail = {"audio": np.zeros(0, np.float32)} if continuation_frames > 0 else None
+        for seg in pause_mod.segment_text(text):
+            if seg.kind == "pause":
+                yield np.zeros(pause_mod.silence_samples(seg.duration_ms, self.sample_rate),
+                               np.float32)
+            else:
+                yield from self.generate_stream(
+                    seg.text, voice_state, frames_after_eos, low_latency=low_latency,
+                    continuation_frames=continuation_frames, _tail=tail)
 
     def _run_segments(self, texts: list[str], voice_state: VoiceState,
                       frames_after_eos: int | None,
@@ -185,6 +340,24 @@ class TTSModel:
             if head.done or (not head.pending and not head.dispatchable):
                 head.finish()
                 active.pop(0)
+
+
+    def _run_segments_continuation(self, texts: list[str], voice_state: VoiceState,
+                                   frames_after_eos: int | None, low_latency: bool,
+                                   continuation_frames: int,
+                                   tail_holder: dict | None = None) -> Iterator[np.ndarray]:
+        """``_run_segments`` with each segment conditioned on the tail of the
+        audio so far.  Every segment extends the ORIGINAL voice state, so the
+        cache holds at most voice + continuation + text + generation."""
+        tail_cap = continuation_frames * self.frame_size
+        if tail_holder is None:
+            tail_holder = {"audio": np.zeros(0, np.float32)}
+        for text in texts:
+            tail = tail_holder["audio"]
+            vs = self.extend_voice_state(voice_state, tail) if tail.size else voice_state
+            for out in self._run_segments([text], vs, frames_after_eos, low_latency):
+                tail_holder["audio"] = np.concatenate([tail_holder["audio"], out])[-tail_cap:]
+                yield out
 
 
 class _SegmentRun:

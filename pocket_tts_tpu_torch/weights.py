@@ -3,10 +3,10 @@
 Reads the released combined checkpoint layout (the reference
 ``TTSModel.state_dict()`` key names, which ``pocket_tts_tpu.weights.
 export_state_dict`` also writes) into the port's parameter dicts of torch
-tensors.  A small numpy safetensors reader replaces the ``safetensors``
-package; without a checkpoint the loader falls back to a deterministic random
-init at full width (numpy only), with the same keys, shapes and init families
-as the JAX package's ``random_params``.
+tensors.  A small numpy safetensors reader and writer replace the
+``safetensors`` package; without a checkpoint the loader falls back to a
+deterministic random init at full width (numpy only), with the same keys,
+shapes and init families as the JAX package's ``random_params``.
 """
 
 from __future__ import annotations
@@ -50,6 +50,26 @@ def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
             raise ValueError(f"{path}: tensor {key} has unsupported dtype {dtype}")
         out[key] = arr.reshape(meta["shape"])
     return out
+
+
+def write_safetensors(tensors: dict[str, np.ndarray], path: str | Path) -> None:
+    """{name: array} -> safetensors file of F32 tensors: 8-byte little-endian
+    header length, JSON header (``dtype``, ``shape``, ``data_offsets``)
+    padded with spaces to a multiple of 8 bytes, then the packed data."""
+    header, blobs, offset = {}, [], 0
+    for key, arr in tensors.items():
+        raw = np.ascontiguousarray(arr, dtype="<f4").tobytes()
+        header[key] = {"dtype": "F32", "shape": list(np.shape(arr)),
+                       "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
 
 
 def remap_split_flow_lm(sd: dict) -> dict:
@@ -203,7 +223,7 @@ def convert_seanet(sd: dict, prefix: str, plan) -> list:
 
 def convert_mimi(sd: dict, plans: MimiPlans, prefix: str = "mimi") -> dict:
     """Decoder-side weights drive decode; encoder, encoder transformer and
-    downsample weights are kept for voice cloning."""
+    downsample weights drive voice cloning."""
     n = plans.cfg.transformer.num_layers
     return {
         "encoder": convert_seanet(sd, f"{prefix}.encoder", plans.encoder),

@@ -1,5 +1,6 @@
-"""Tests of the port's CUDA kernels, which run only on an NVIDIA GPU (sm_90a)
-with nvcc: a CUDA kernel has no CPU mode.  Without a card they skip.
+"""Tests that run only on an NVIDIA GPU: the port's CUDA kernels (sm_90a,
+built with nvcc; a CUDA kernel has no CPU mode) and the voice encoder on the
+card against its CPU run.  Without a card they skip.
 
 This file imports no JAX (the GPU machine has none), so it runs there with
 the JAX-importing tests/conftest.py left out:
@@ -64,3 +65,38 @@ def test_flow_blocks_raises_on_cuda_input_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="on cpu"):
         fb.flow_blocks(sy, sy.cpu(), blocks)
     assert fb.flow_blocks.launches == launches
+
+
+@pytest.mark.parametrize("seconds", [1.5, 3.3])  # one-shot, chunked
+def test_voice_encoder_on_cuda_matches_cpu(cuda_device, seconds):
+    """The voice encoder (Mimi encoder + speaker projection, float32) on the
+    card against the same model on the CPU, at a small config whose encode
+    buckets send 3.3 s down the chunked path.  1e-4: f32 on both sides, TF32
+    off, sums in another order."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch import config as c
+    from pocket_tts_tpu_torch import weights
+    from pocket_tts_tpu_torch.runtime.engine import Engine
+
+    cfg = c.Config(
+        flow_lm=c.FlowLMConfig(
+            flow=c.FlowConfig(dim=48, depth=2),
+            transformer=c.TransformerConfig(d_model=64, num_heads=4, num_layers=2,
+                                            hidden_scale=2),
+            lookup_table=c.LookupTableConfig(dim=64, n_bins=4000)),
+        mimi=c.MimiConfig(
+            seanet=c.SEANetConfig(dimension=32, n_filters=4),
+            transformer=c.MimiTransformerConfig(d_model=32, input_dimension=32,
+                                                output_dimensions=(32,), num_heads=4,
+                                                num_layers=2, context=48, dim_feedforward=64),
+            quantizer=c.QuantizerConfig(dimension=16, output_dimension=32)),
+        runtime=c.RuntimeConfig(encode_seconds_buckets=(1.0, 2.0), voice_prompt_chunk_frames=8))
+    torch.backends.cudnn.allow_tf32 = False
+    params = weights.from_state_dict(weights.random_state_dict(cfg, 0), cfg)
+    wav = (np.random.default_rng(1).standard_normal(int(seconds * 24000)) * 0.1
+           ).astype(np.float32)
+    got, n = Engine(cfg, params, cuda_device).encode_voice(wav)
+    ref, n_ref = Engine(cfg, params, "cpu").encode_voice(wav)
+    assert got.device.type == "cuda" and n == n_ref == -(-wav.size // 1920)
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4

@@ -1,8 +1,9 @@
 """The port against FROZEN fixtures from the original PyTorch model
 (tests/golden/parity_small.npz): the oracle's state dicts load through the
-port's converters, and the Mimi streaming decode and the FlowLM trajectory
-must match the oracle's outputs — the bounds of tests/test_frozen_parity.py
-(2e-4 audio, 5e-4 latents and EOS logits).  This ties the port to the
+port's converters, and the Mimi batch encode, the Mimi streaming decode and
+the FlowLM trajectory must match the oracle's outputs — the bounds of
+tests/test_frozen_parity.py (2e-4 Mimi latents and audio, 5e-4 FlowLM
+latents and EOS logits).  This ties the port to the
 original model, not only to the JAX package."""
 
 import dataclasses
@@ -34,10 +35,22 @@ def maxdiff(a, b):
     return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
 
 
-def test_mimi_streaming_decode_matches_frozen_oracle(fx):
+def _mimi_params(fx):
     plans = mimi.MimiPlans(config_from_dict(dataclasses.asdict(SMALL_MIMI), MimiConfig))
     sd = {f"mimi.{k}": v for k, v in _sub(fx, "mimi_sd.").items()}
-    p = weights.convert_mimi(sd, plans)
+    return plans, weights.convert_mimi(sd, plans)
+
+
+def test_mimi_encode_matches_frozen_oracle(fx):
+    plans, p = _mimi_params(fx)
+    got = mimi.encode_to_latent(p, plans, torch.from_numpy(fx["mimi_audio"]), block=16)
+    ref = fx["mimi_ref_latent"]
+    assert got.shape == ref.shape
+    assert maxdiff(got.numpy(), ref) < 2e-4
+
+
+def test_mimi_streaming_decode_matches_frozen_oracle(fx):
+    plans, p = _mimi_params(fx)
     latents = fx["mimi_dec_latents"]
     st = mimi.init_decode_state(plans, 1)
     gots = []

@@ -148,8 +148,16 @@ def test_port_sources_import_no_jax():
 
 _NO_JAX = r"""
 import json, sys
-for m in ("jax", "jaxlib", "tokenizers", "yaml", "safetensors"):
-    sys.modules[m] = None
+BLOCKED = ("jax", "jaxlib", "tokenizers", "yaml", "safetensors")
+
+
+class Block:  # an import finder, not sys.modules[m] = None: scipy probes sys.modules
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked")
+
+
+sys.meta_path.insert(0, Block())
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -162,6 +170,17 @@ model = pocket_tts_tpu_torch.TTSModel(
     gen=GenParams(temp=0.5), has_real_weights=False, device="cpu")
 wav = model.generate("Hi there.")
 assert wav.size and wav.size % 1920 == 0 and np.isfinite(wav).all()
+import os, tempfile
+from pocket_tts_tpu_torch import audio
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "voice.wav")
+    audio.write_wav(path, np.random.default_rng(0).standard_normal(16000) * 0.1, 16000)
+    vs = model.get_voice_state(path)
+    model.save_voice_prompt(audio.convert_audio(*audio.read_wav(path), 24000)[0],
+                            os.path.join(tmp, "voice.safetensors"))
+    assert model.get_voice_state(os.path.join(tmp, "voice.safetensors")).length == vs.length
+voiced = model.generate("Hi there.", vs)
+assert vs.length == 13 and voiced.size and np.isfinite(voiced).all()
 loaded = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and m.split(".")[0] in ("jax", "pocket_tts_tpu"))
 assert not loaded, loaded

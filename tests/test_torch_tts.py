@@ -89,5 +89,10 @@ def test_empty_voice_state_is_shared_and_never_written(models):
     port.generate("Hello, world!")
     assert int(vs.pos[0]) == 0 and vs.length == 0
     assert torch.count_nonzero(vs.kc) == 0
-    with pytest.raises(NotImplementedError):
-        port.get_voice_state("speaker.wav")
+    # a voice source yields a prefilled state of its own; the empty one stays empty
+    wav = (np.random.default_rng(0).standard_normal(24000) * 0.1).astype(np.float32)
+    voiced = port.get_voice_state_from_audio(wav)
+    assert voiced is not vs and voiced.length == int(voiced.pos[0]) == 13
+    port.generate("Hello, world!", voiced)
+    assert int(vs.pos[0]) == 0 and vs.length == 0
+    assert torch.count_nonzero(vs.kc) == 0 and torch.count_nonzero(vs.vc) == 0
