@@ -10,8 +10,9 @@ result line):
 2. Build: every CUDA kernel of the main path, with nvcc, from the sources in
    this checkout (into build/pocket_tts_tpu_torch/).
 3. Kernel against plain: ``flow_blocks`` at flagship dims (dim 512, depth 6,
-   B in {1, 16}) against its plain PyTorch version, float32 with TF32 off;
-   median times over 100 runs with CUDA events.
+   B in {1, 4, 16}: single stream and the batch phase's two slot counts)
+   against its plain PyTorch version, float32 with TF32 off; median times
+   over 100 runs with CUDA events.
 4. Main path: ``TTSModel.load`` of the flagship variant (random weights from
    a seed; bf16 backbone, f32 flow net and codec) with an unreachable EOS
    threshold, ``generate`` of three sentences with the kernel launch count
@@ -29,6 +30,20 @@ result line):
    on the card; ``overflow="compress"`` over the 768-frame budget; a voiced
    ``generate`` with its kernel launch count checked; the ``audio_prompt``
    file round trip; and ``generate_with_pauses`` with continuation.
+7. Batch: continuous-batched synthesis.  (a) A full-width float32 model on
+   the card, ``ContinuousBatcher(batch_size=4, chunk_frames=8)``, four
+   concurrent temp-0 requests (one with ``lsd_decode_steps=2``, one with a
+   noise clamp, one with a pause), each against the single stream within
+   ``REF_TOL_LSB``.  (b) ``batched_tts(model, batch_size=16,
+   chunk_frames=64)`` on the bf16 model: 32 whole-WAV requests through
+   ``generate_batch``, lengths, finiteness and the kernel launch count
+   (= the sum over dispatches of chunk frames x step ceiling) checked;
+   aggregate x-realtime, ``useful_ratio``, the device busy share of a short
+   profiled run, and ms per admission.  (c) 8 streams arriving while 8
+   multi-segment whole-WAV requests fill the batch: first-chunk p50/p90,
+   preemptions, each stream's segments in order.  (d) The CLI as
+   subprocesses: ``batch --device cuda`` on a 4-line manifest (one JSONL line
+   with a voice WAV) and ``generate --device cuda -o``.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -126,7 +141,7 @@ def phase_kernel(dev) -> dict:
               "mlp2_b": torch.randn(depth, dim, generator=g) * 0.1}
     blocks = {k: v.to(dev) for k, v in blocks.items()}
     out = {}
-    for batch in (1, 16):
+    for batch in (1, 4, 16):
         sy = torch.nn.functional.silu(torch.randn(batch, dim, generator=g)).to(dev)
         h0 = torch.randn(batch, dim, generator=g).to(dev)
         got = fb.flow_blocks(sy, h0, blocks)
@@ -407,6 +422,279 @@ def phase_voice(model) -> int:
     return launches
 
 
+BATCH_SENTENCES = (
+    "The morning train left the station exactly on time.",
+    "She opened the window and listened to the rain.",
+    "Numbers on the screen changed faster than anyone could read them.",
+    "A small boat drifted slowly across the quiet lake.",
+    "He wrote the letter twice before he finally sent it.",
+    "The library stays open late on every Thursday evening.",
+    "Bright lights from the city reflected on the dark water.",
+    "Our team finished the project two days ahead of schedule.",
+)
+STREAM_HEAD, STREAM_TAIL = "Streaming arrives under load.", "Then it finishes cleanly."
+STREAM_TEXT = f"{STREAM_HEAD} [pause:200ms] {STREAM_TAIL}"
+
+
+def _budget(model, text: str) -> int:
+    """Frames the stop rule emits with EOS disabled: each sentence chunk's
+    frame budget (texts here have no comma or ellipsis pauses)."""
+    return sum(model.estimate_generation_steps(s) for s in model.split_into_best_sentences(text))
+
+
+def _device_busy(trace_path: Path) -> tuple[float, list]:
+    """(ms the device was busy, top kernels [(name, ms)]) from a chrome trace:
+    the union of kernel, memcpy and memset intervals."""
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    busy, end = 0.0, float("-inf")
+    for start, dur in sorted((float(e["ts"]), float(e["dur"])) for e in events):
+        if start + dur > end:
+            busy += start + dur - max(start, end)
+            end = start + dur
+    by_name: dict[str, float] = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"]) / 1e3
+    return busy / 1e3, sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+
+
+def _batch_exactness():
+    """(a) float32 lanes of a B=4 batcher against the single stream."""
+    from pocket_tts_tpu_torch import config, weights
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.runtime.batcher import ContinuousBatcher
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+    from pocket_tts_tpu_torch.tts import TTSModel
+
+    cfg = config.load_variant()
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime,
+                                                               compute_dtype="float32"))
+    base = GenParams(temp=0.0, eos_threshold=float("inf"))
+    m32 = TTSModel(cfg, weights.load_params(cfg)[0], gen=base, has_real_weights=False,
+                   device="cuda")
+    texts = ["Hello there from the first lane.", "Two flow steps in the second lane.",
+             "A clamped third lane speaks.", "Fourth lane. [pause:300ms] After the pause."]
+    gens = [base, dataclasses.replace(base, lsd_decode_steps=2),
+            dataclasses.replace(base, noise_clamp=0.5), base]
+    singles = []
+    for text, gen in zip(texts, gens):
+        m32.gen = gen
+        singles.append(m32.generate_with_pauses(text))
+    m32.gen = base
+    b = ContinuousBatcher(m32, batch_size=4, chunk_frames=8)
+    b.start()
+    try:
+        launches, evals = fb.flow_blocks.launches, b.engine.flow_evals
+        results = b.generate_batch(texts, gens=gens)
+        launches, evals = fb.flow_blocks.launches - launches, b.engine.flow_evals - evals
+    finally:
+        b.stop()
+    _require(launches == evals > 0, f"f32 batch: launches {launches} != flow evaluations {evals}")
+    worst = 0
+    for text, got, want in zip(texts, results, singles):
+        _require(got.shape == want.shape, f"f32 batch {text!r}: {got.shape} vs {want.shape}")
+        worst = max(worst, int(np.abs(_pcm(got) - _pcm(want)).max()))
+    _require(worst <= REF_TOL_LSB, f"f32 batch lanes vs single stream: {worst} int16 LSB")
+    print(f"batch: f32 full width, B=4 chunk 8, 4 concurrent temp-0 requests (lsd 1/2/1/1, "
+          f"clamp -/-/0.5/-, one pause) == single stream within {worst} int16 LSB "
+          f"(bound {REF_TOL_LSB}); {launches} flow_blocks launches = flow evaluations")
+    del m32, b
+    torch.cuda.empty_cache()
+
+
+def _batch_streaming(b, model, voice=None) -> None:
+    """(c) 8 streams arriving while 8 multi-segment whole-WAV requests fill
+    the batch."""
+    import threading
+
+    hog_text = TEXT
+    d0 = b.stats()["dispatches"]
+    hogs = [b.submit(hog_text, voice, latency_sensitive=False) for _ in range(8)]
+    deadline = time.monotonic() + 120
+    while b.stats()["queued_segments"] or b.stats()["dispatches"] == d0:
+        _require(time.monotonic() < deadline, f"hogs never filled the batch: {b.stats()}")
+        time.sleep(0.005)  # every hog segment admitted and decoding
+    pre = b.stats()["preemptions"]
+    firsts, outs, errors = [None] * 8, [None] * 8, []
+
+    def arrive(i):
+        try:
+            t0 = time.perf_counter()
+            chunks = []
+            for c in b.stream(STREAM_TEXT, voice):
+                if not chunks:
+                    firsts[i] = (time.perf_counter() - t0) * 1e3
+                chunks.append(c)
+            outs[i] = chunks
+        except Exception as e:  # noqa: BLE001 - reported and failed below
+            errors.append(repr(e))
+
+    threads = []
+    for i in range(8):
+        threads.append(threading.Thread(target=arrive, args=(i,)))
+        threads[-1].start()
+        time.sleep(0.1)
+    for t in threads:
+        t.join(timeout=300)
+    _require(not errors and not any(t.is_alive() for t in threads), f"streams: {errors}")
+    head, tail = _budget(model, STREAM_HEAD), _budget(model, STREAM_TAIL)
+    gap = 200 * model.sample_rate // 1000
+    fs = model.frame_size
+    for chunks in outs:
+        audio = np.concatenate(chunks)
+        _require(audio.size == (head + tail) * fs + gap,
+                 f"stream length {audio.size} != ({head} + {tail}) x {fs} + {gap}")
+        _require(bool(np.isfinite(audio).all()) and float(audio[: head * fs].std()) > 0,
+                 "stream: bad head audio")
+        _require(not audio[head * fs: head * fs + gap].any()
+                 and float(audio[head * fs + gap:].std()) > 0,
+                 "stream: segments out of order (the pause is not where it belongs)")
+    hog_len = _budget(model, hog_text) * fs
+    for q in hogs:
+        chunks = []
+        while isinstance(item := q.get(timeout=300), np.ndarray):
+            chunks.append(item)
+        _require(sum(c.size for c in chunks) == hog_len, "whole-WAV request under load: length")
+    p50, p90 = np.percentile(firsts, 50), np.percentile(firsts, 90)
+    print(f"batch: streaming under load (8 arrivals 100 ms apart while 8 two-segment whole-WAV "
+          f"requests fill 16 slots): first chunk p50 {p50:.1f} ms p90 {p90:.1f} ms "
+          f"(max {max(firsts):.1f}), preemptions {b.stats()['preemptions'] - pre}; every stream "
+          f"complete with its pause in place")
+
+
+def _batch_cli(model) -> None:
+    """(d) The CLI's batch and generate commands as subprocesses."""
+    import wave as wave_mod
+
+    root = Path(__file__).resolve().parent
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    voice = d / "voice.wav"
+    pcm = (np.clip(_synthetic_voice(3.0, 24000, seed=5), -1, 1) * 32767).astype("<i2")
+    with wave_mod.open(str(voice), "wb") as f:
+        f.setnchannels(2)
+        f.setsampwidth(2)
+        f.setframerate(24000)
+        f.writeframes(pcm.T.tobytes())
+    lines = [BATCH_SENTENCES[0], BATCH_SENTENCES[1],
+             json.dumps({"text": BATCH_SENTENCES[2], "voice": str(voice), "output": "voiced.wav"}),
+             BATCH_SENTENCES[3]]
+    (d / "manifest.txt").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    names = ["00000.wav", "00001.wav", "voiced.wav", "00003.wav"]
+    texts = [BATCH_SENTENCES[i] for i in range(4)]
+    common = ["--device", "cuda", "--eos-threshold", "inf", "--quiet"]
+    runs = [(["batch", "--manifest", str(d / "manifest.txt"), "--out-dir", str(d / "out")],
+             [(d / "out" / n, t) for n, t in zip(names, texts)]),
+            (["generate", "--text", TEXT, "-o", str(d / "gen.wav")], [(d / "gen.wav", TEXT)])]
+    for args, wavs in runs:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "pocket_tts_tpu_torch.cli", *args, *common],
+                             cwd=root, capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t0
+        _require(res.returncode == 0, f"cli {args[0]}: exit {res.returncode}\n{res.stderr[-3000:]}")
+        _require("device: cuda" in res.stderr, f"cli {args[0]}: no cuda device line")
+        for path, text in wavs:
+            with wave_mod.open(str(path), "rb") as f:
+                got = (f.getframerate(), f.getnchannels(), f.getnframes())
+            want = (24000, 1, _budget(model, text) * model.frame_size)
+            _require(got == want, f"cli {args[0]} {path.name}: (rate, channels, samples) "
+                                  f"{got} != {want}")
+        last = [ln for ln in res.stderr.splitlines() if "realtime" in ln]
+        print(f"batch: cli {args[0]} --device cuda: exit 0 in {dt:.1f} s, {len(wavs)} WAV(s) "
+              f"of the expected lengths; {last[-1].strip() if last else ''}")
+    tmp.cleanup()
+
+
+def phase_batch(model) -> int:
+    """Continuous-batched synthesis; returns the flow_blocks launch count of
+    the B=16 whole-WAV run."""
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.runtime.batcher import batched_tts
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+
+    _batch_exactness()
+
+    # (b) throughput at B=16 on the bf16 model, temp 0.7, EOS disabled
+    model.gen = GenParams(temp=0.7, eos_threshold=float("inf"))
+    b = batched_tts(model, batch_size=16, chunk_frames=64)
+    try:
+        t0 = time.perf_counter()
+        b.warmup()
+        warm_s = time.perf_counter() - t0
+        texts = [f"{BATCH_SENTENCES[i % 8]} {BATCH_SENTENCES[(i + 3) % 8]}" for i in range(32)]
+        eng = b.engine
+        torch.cuda.synchronize()
+        fb.flow_blocks.launches = 0
+        eng.flow_evals = eng.frames_decoded = 0
+        stats0 = b.stats()
+        t0 = time.perf_counter()
+        results = b.generate_batch(texts)
+        wall = time.perf_counter() - t0
+        launches, evals = fb.flow_blocks.launches, eng.flow_evals
+        st = b.stats()
+        _require(launches == evals > 0,
+                 f"B=16: flow_blocks launches {launches} != sum of chunk x step ceiling {evals}")
+        for text, audio in zip(texts, results):
+            want = _budget(model, text) * model.frame_size
+            _require(audio.size == want, f"B=16 {text!r}: {audio.size} samples != {want}")
+            _require(bool(np.isfinite(audio).all()) and float(audio.std()) > 0,
+                     f"B=16 {text!r}: non-finite or silent audio")
+        secs = sum(a.size for a in results) / model.sample_rate
+        dispatches = st["dispatches"] - stats0["dispatches"]
+        useful = st["useful_frames"] - stats0["useful_frames"]
+        decoded = st["frames_decoded"] - stats0["frames_decoded"]
+        print(f"batch: batched_tts B=16 chunk 64, warmup {warm_s:.2f} s; 32 whole-WAV requests "
+              f"via generate_batch: {secs:.2f} s audio in {wall * 1e3:.1f} ms = aggregate "
+              f"x-realtime {secs / wall:.2f}; useful_ratio {useful / decoded:.3f} "
+              f"({useful} of {decoded} slot-frames), {dispatches} dispatches, "
+              f"{st['early_retirements'] - stats0['early_retirements']} early retirements, "
+              f"flow_blocks launches {launches} = sum of chunk x step ceiling, "
+              f"{eng.frames_decoded} frames dispatched: {wall * 1e3 / eng.frames_decoded:.3f} "
+              f"ms per B=16 frame")
+
+        # device busy share of a short run: profiled device time over the
+        # wall of the same run unprofiled
+        short = [BATCH_SENTENCES[i % 8] for i in range(16)]
+        t0 = time.perf_counter()
+        b.generate_batch(short)
+        short_wall = (time.perf_counter() - t0) * 1e3
+        trace = Path(tempfile.mkdtemp()) / "batch_trace.json"
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            b.generate_batch(short)
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(str(trace))
+        busy, top = _device_busy(trace)
+        trace.unlink()
+        if busy > 0:
+            print(f"batch: device busy {busy:.1f} ms over a {short_wall:.1f} ms unprofiled wall "
+                  f"(16 one-sentence requests, B=16): busy share {busy / short_wall:.3f} "
+                  f"(profiled wall {prof_wall:.1f} ms); top kernels "
+                  + ", ".join(f"{n[:40]} {ms:.1f} ms" for n, ms in top))
+        else:
+            print("batch: device busy share not measured (the trace holds no device events)")
+
+        _batch_streaming(b, model)
+    finally:
+        b.stop()
+
+    # ms per admission: one fused admit + text prefill, synchronized
+    from pocket_tts_tpu_torch import text as text_mod
+
+    prepared, _ = text_mod.prepare_text_prompt(BATCH_SENTENCES[0])
+    tokens, n = text_mod.tokens_array(model.tokenizer, prepared)
+    state = eng.new_state(16)
+    row, vs = eng.pad_token_row(tokens), model.get_voice_state().as_dict()
+    times = [_timed(lambda: eng.admit_prefill_slot(state, i % 16, vs, row, n))[1]
+             for i in range(21)][1:]
+    print(f"batch: admission (voice install + {n}-token text prefill on one lane of 16): "
+          f"{statistics.median(times):.2f} ms median of 20, synchronized")
+    del state
+    _batch_cli(model)
+    return launches
+
+
 def main() -> None:
     kind = phase_environment()
     phase_build()
@@ -415,13 +703,16 @@ def main() -> None:
     model, launches = phase_main_path()
     phase_reference()
     voice_launches = phase_voice(model)
+    batch_launches = phase_batch(model)
     print(json.dumps({"kernels": [{
         "name": "flow_blocks", "route": "cuda",
         "source": "pocket_tts_tpu_torch/csrc/flow_blocks.cu",
         "replaces": "pocket_tts_tpu/ops/pallas/flow_kernel.py:107",
         "launches": launches, "launches_voice": voice_launches,
+        "launches_batch": batch_launches,
         "max_abs_err": max(k["err"] for k in kern.values()),
         "ms": kern[1]["ms"], "plain_ms": kern[1]["plain_ms"],
+        "ms_b4": kern[4]["ms"], "plain_ms_b4": kern[4]["plain_ms"],
         "ms_b16": kern[16]["ms"], "plain_ms_b16": kern[16]["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -73,15 +73,20 @@ def read_wav(path: str | Path | bytes) -> tuple[np.ndarray, int]:
     raise ValueError("No data chunk found in WAV file")
 
 
+def pcm_i16_le_bytes(audio: np.ndarray) -> bytes:
+    """float [-1, 1] -> little-endian int16 PCM bytes: samples clipped,
+    scaled by 32767 and truncated toward zero."""
+    pcm = np.clip(np.asarray(audio, np.float32).reshape(-1), -1.0, 1.0) * 32767.0
+    return pcm.astype("<i2").tobytes()
+
+
 def write_wav(path: str | Path, audio: np.ndarray, sample_rate: int) -> None:
-    """Mono 16-bit PCM WAV: samples clipped to [-1, 1], scaled by 32767 and
-    truncated toward zero."""
-    pcm = (np.clip(np.asarray(audio, np.float32).reshape(-1), -1.0, 1.0) * 32767.0)
+    """Mono 16-bit PCM WAV (``pcm_i16_le_bytes``)."""
     with wave.open(str(path), "wb") as f:
         f.setnchannels(1)
         f.setsampwidth(2)
         f.setframerate(sample_rate)
-        f.writeframes(pcm.astype("<i2").tobytes())
+        f.writeframes(pcm_i16_le_bytes(audio))
 
 
 def resample(audio: np.ndarray, from_rate: int, to_rate: int) -> np.ndarray:

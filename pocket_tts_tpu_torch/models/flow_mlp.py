@@ -44,6 +44,15 @@ def time_embedding_table(params: dict, num_steps: int) -> torch.Tensor:
     return (e_s + e_t) / 2.0
 
 
+def time_embedding_tables(params: dict, max_steps: int) -> torch.Tensor:
+    """[max_steps, max_steps, dim]: row L-1 is the L-step schedule's table,
+    zero-padded beyond L.  Indexed per batch slot so requests with different
+    ``lsd_decode_steps`` share one decode (the padded rows are the dt = 0
+    steps of :func:`lsd_decode_masked`, so their values never matter)."""
+    return torch.stack([F.pad(time_embedding_table(params, n), (0, 0, 0, max_steps - n))
+                        for n in range(1, max_steps + 1)])
+
+
 def embed_condition(params: dict, cond: torch.Tensor) -> torch.Tensor:
     """cond_embed: [.., cond_dim] -> [.., dim]."""
     return cond @ params["cond_w"].T + params["cond_b"]
@@ -72,4 +81,24 @@ def lsd_decode(params: dict, cond_emb: torch.Tensor, t_emb_table: torch.Tensor,
         y = t_emb_table[i] + cond_emb
         v = flow_step(params, y, x)
         x = x + v.float() / num_steps
+    return x
+
+
+def lsd_decode_masked(params: dict, cond_emb: torch.Tensor, t_emb_sb: torch.Tensor,
+                      noise: torch.Tensor, steps_vec: torch.Tensor,
+                      max_steps: int) -> torch.Tensor:
+    """Per-slot step counts in one decode: every slot runs ``max_steps`` flow
+    evaluations (each a ``flow_blocks`` call over the whole batch), but slot
+    s integrates with dt = 1/steps[s] for its first steps[s] evaluations and
+    dt = 0 afterwards, which equals :func:`lsd_decode` at steps[s].
+
+    t_emb_sb: [max_steps, B, dim] per-slot time embeddings; steps_vec: [B]
+    int, each in 1..max_steps."""
+    x = noise.float()
+    inv = 1.0 / steps_vec.float()
+    for i in range(max_steps):
+        y = t_emb_sb[i] + cond_emb
+        v = flow_step(params, y, x)
+        dt = torch.where(steps_vec > i, inv, 0.0)[:, None]
+        x = x + v.float() * dt
     return x

@@ -1,5 +1,5 @@
-"""Generation engine around the model (port of the chunked single-stream path
-of ``pocket_tts_tpu/runtime/engine.py``).
+"""Generation engine around the model (port of the chunked path of
+``pocket_tts_tpu/runtime/engine.py``, single-stream and batched).
 
 * One state dict (FlowLM KV cache + cursor, previous latent, Mimi decode
   state) threads through everything; the cache is updated in place.
@@ -7,7 +7,12 @@ of ``pocket_tts_tpu/runtime/engine.py``).
   grouped Mimi decode over the K latents, and converts to int16 PCM — the
   grouping of the JAX package's ``_codec_impl``.  ``pos`` stays a device
   int32 [B] tensor: nothing in the frame loop waits for the device; the host
-  reads audio and EOS flags once per chunk.
+  reads audio and EOS flags once per chunk.  Per-slot temperature, EOS
+  threshold, LSD step count and noise clamp vectors serve the continuous
+  batcher (``runtime/batcher.py``).
+* ``admit_slot`` / ``admit_prefill_slot`` install a voice snapshot into one
+  lane of a batched state and prefill that lane's text, writing that lane
+  only, in place.
 * Text prefill is bucketed on length (right-padded; padded positions are
   never written to the cache).
 * Voice prompts go through the Mimi encoder and the speaker projection
@@ -67,27 +72,44 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _map2(dst, src, fn):
+    """``fn(dst_leaf, src_leaf)`` over two trees of one structure."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _map2(dst[k], src[k], fn)
+    elif isinstance(dst, list):
+        for d, s in zip(dst, src):
+            _map2(d, s, fn)
+    else:
+        fn(dst, src)
+
+
 def place_params(params: dict, device: torch.device, dtype: torch.dtype,
                  codec_dtype: torch.dtype) -> dict:
     """Move params to ``device``: the backbone, input linear and text
     embedding go to ``dtype`` (bf16 on CUDA: they are the bytes streamed per
     frame), the codec to ``codec_dtype``.  The flow net, the output norm /
-    EOS head and the latent statistics stay float32."""
+    EOS head and the latent statistics stay float32.
+    Tensors already on ``device`` in their dtype are kept, not copied, so
+    engines built from one placed dict share its tensors."""
     def cast(dt):
         return lambda t: t.to(device=device, dtype=dt).contiguous()
 
-    fl = {k: _map(v, cast(torch.float32)) for k, v in params["flow_lm"].items()}
-    for name in ("tf", "input_w", "text_embed"):
-        fl[name] = _map(params["flow_lm"][name], cast(dtype))
+    narrow = ("tf", "input_w", "text_embed")
+    fl = {k: _map(v, cast(dtype if k in narrow else torch.float32))
+          for k, v in params["flow_lm"].items()}
     return {"flow_lm": fl, "mimi": _map(params["mimi"], cast(codec_dtype))}
 
 
 class Engine:
-    """Single-stream generation programs for one (config, device) pair."""
+    """Generation for one (config, device, batch size).  ``params`` may be
+    another engine's placed params: they are then shared, not copied."""
 
-    def __init__(self, cfg: Config, params: dict, device: torch.device | str):
+    def __init__(self, cfg: Config, params: dict, device: torch.device | str,
+                 batch_size: int = 1):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.batch = batch_size
         self.plans = MimiPlans(cfg.mimi)
         rcfg = cfg.runtime
         self._tcfg = cfg.flow_lm.transformer
@@ -112,25 +134,43 @@ class Engine:
         # in float32 they agree within 2 LSB.
         self.codec_dtype = torch.float32
         self.params = place_params(params, self.device, self.dtype, self.codec_dtype)
-        # autoregressive frames computed by decode_frames (overshoot included)
+        # autoregressive frames computed by decode_frames (overshoot included),
+        # and the flow-net evaluations they ran (each one flow_blocks call)
         self.frames_decoded = 0
+        self.flow_evals = 0
+        self._fresh_mimi1 = None  # read-only fresh B = 1 codec state (admission)
 
     # -- state -------------------------------------------------------------
 
-    def _fresh_decode_state(self) -> dict:
+    def _fresh_decode_state(self, batch: int = 1) -> dict:
         bos = self.params["flow_lm"]["bos_emb"]
-        return {"latent": bos.expand(1, self.ldim).clone(),
-                "mimi": mimi.init_decode_state(self.plans, 1, self.codec_dtype, self.device)}
+        return {"latent": bos.expand(batch, self.ldim).clone(),
+                "mimi": mimi.init_decode_state(self.plans, batch, self.codec_dtype,
+                                               self.device)}
 
-    def new_state(self) -> dict:
-        """Empty single-stream (B = 1) state: zero cache, cursor 0."""
+    def new_state(self, batch: int | None = None) -> dict:
+        """Empty state of ``batch`` lanes (default: the engine's batch size):
+        zero cache, cursor 0."""
+        batch = batch or self.batch
         tcfg = self._tcfg
-        kc, vc = transformer.init_cache(tcfg.num_layers, 1, self._rcfg.max_seq,
+        kc, vc = transformer.init_cache(tcfg.num_layers, batch, self._rcfg.max_seq,
                                         tcfg.num_heads, tcfg.head_dim, self.kv_dtype,
                                         self.device)
         return {"kc": kc, "vc": vc,
-                "pos": torch.zeros((1,), dtype=torch.int32, device=self.device),
-                **self._fresh_decode_state()}
+                "pos": torch.zeros((batch,), dtype=torch.int32, device=self.device),
+                **self._fresh_decode_state(batch)}
+
+    def put(self, arr, dtype: torch.dtype) -> torch.Tensor:
+        """Host array (or a tensor already on the device) -> tensor on the
+        device.  On CUDA a host array is staged in pinned memory and its copy
+        enqueued without waiting: a pageable or blocking copy would wait for
+        every chunk already in flight."""
+        if torch.is_tensor(arr):
+            return arr.to(device=self.device, dtype=dtype)
+        t = torch.as_tensor(np.asarray(arr), dtype=dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
 
     def reset_for_segment(self, voice_state: dict) -> dict:
         """Per-segment restart from a voice state: the FlowLM cache is COPIED
@@ -138,6 +178,52 @@ class Engine:
         the shared snapshot); latent and Mimi decoder start fresh."""
         return {"kc": voice_state["kc"].clone(), "vc": voice_state["vc"].clone(),
                 "pos": voice_state["pos"].clone(), **self._fresh_decode_state()}
+
+    # -- slot admission (continuous batching) --------------------------------
+
+    def admit_slot(self, state: dict, slot: int, voice_state: dict) -> dict:
+        """Install a B = 1 voice snapshot (kc, vc, pos) into lane ``slot`` of a
+        batched state and reset that lane's latent and Mimi decoder.  Every
+        write is in place and touches that lane only; on one stream it runs
+        after the chunks already enqueued, which read the lane's old data."""
+        lane = slice(slot, slot + 1)
+        state["kc"][:, lane].copy_(voice_state["kc"])
+        state["vc"][:, lane].copy_(voice_state["vc"])
+        state["pos"][lane].copy_(voice_state["pos"])
+        state["latent"][lane].copy_(self.params["flow_lm"]["bos_emb"])
+        if self._fresh_mimi1 is None:
+            self._fresh_mimi1 = mimi.init_decode_state(self.plans, 1, self.codec_dtype,
+                                                       self.device)
+        fresh, dec = self._fresh_mimi1, state["mimi"]
+        for name in ("kc", "vc"):  # [L, B, ...]
+            dec[name][:, lane].copy_(fresh[name])
+        for name in ("up", "pos", "dec"):
+            _map2(dec[name], fresh[name], lambda dst, src: dst[lane].copy_(src))
+        return state
+
+    def pad_token_row(self, tokens: np.ndarray) -> torch.Tensor:
+        """[1, n] int32 -> [1, bucket] host row for ``admit_prefill_slot``
+        (pinned on CUDA, so its upload at admission is enqueued, not waited
+        for).  Safe from any thread."""
+        bucket = _bucket(tokens.shape[1], self._rcfg.text_buckets)
+        padded = torch.zeros((1, bucket), dtype=torch.int32)
+        padded[:, : tokens.shape[1]] = torch.from_numpy(np.asarray(tokens, np.int32))
+        return padded.pin_memory() if self.device.type == "cuda" else padded
+
+    def admit_prefill_slot(self, state: dict, slot: int, voice_state: dict,
+                           tokens_row: torch.Tensor, n_tokens: int) -> dict:
+        """``admit_slot`` plus this lane's text prefill at B = 1, on the
+        lane's view of the batched cache (the prefill writes through the view
+        into the shared buffer).  ``tokens_row``: from ``pad_token_row``."""
+        state = self.admit_slot(state, slot, voice_state)
+        lane = slice(slot, slot + 1)
+        params = self.params["flow_lm"]
+        emb = flow_lm.embed_text(params, tokens_row.to(self.device, non_blocking=True))
+        t_valid = torch.full((1,), n_tokens, dtype=torch.int32, device=self.device)
+        _, _, pos = flow_lm.prefill(params, self.cfg, state["kc"][:, lane], state["vc"][:, lane],
+                                    state["pos"][lane], emb, t_valid)
+        state["pos"][lane].copy_(pos)
+        return state
 
     # -- prefill -----------------------------------------------------------
 
@@ -233,31 +319,58 @@ class Engine:
         return np.asarray(arr).astype(np.float32) / 32767.0
 
     def decode_frames(self, state: dict, n_frames: int, gen: GenParams,
-                      generator: torch.Generator) -> tuple[dict, torch.Tensor, torch.Tensor]:
+                      generator: torch.Generator, *, temps=None, eos_thresholds=None,
+                      lsd_vec: np.ndarray | None = None, clamp_vec=None,
+                      ) -> tuple[dict, torch.Tensor, torch.Tensor]:
         """K = ``n_frames`` autoregressive frames + one grouped codec decode.
 
         Every frame attends over the whole cache (masked past ``pos``), so a
         frame's arithmetic does not depend on how frames are grouped into
         chunks.  Returns (state, int16 audio [B, K * 1920], is_eos [B, K]),
-        both outputs still on the device."""
+        both fresh tensors on the device (never views of the state).
+
+        ``temps`` / ``eos_thresholds``: optional per-slot [B] vectors (host
+        arrays or device tensors) in place of ``gen``'s.  ``lsd_vec`` (host
+        [B] ints, each >= 1) / ``clamp_vec`` ([B]; < 0 unclamped, 0 a hard
+        zero): per-slot step counts and noise clamps, run as masked Euler
+        steps up to the batch maximum (the output does not depend on it)."""
         params = self.params["flow_lm"]
         b = state["pos"].shape[0]
+        temp = gen.temp if temps is None else self.put(temps, torch.float32)
+        eos_th = (gen.eos_threshold if eos_thresholds is None
+                  else self.put(eos_thresholds, torch.float32)[:, None])
+        if lsd_vec is not None or clamp_vec is not None:
+            lsd = np.asarray(np.full((b,), gen.lsd_decode_steps) if lsd_vec is None
+                             else lsd_vec, np.int64)
+            if np.any(lsd < 1):
+                # 0 would index the tables at -1 and emit raw noise as the latent
+                raise ValueError(f"lsd_vec entries must be >= 1, got {lsd}")
+            if clamp_vec is None:
+                clamp_vec = np.full((b,), -1.0 if gen.noise_clamp is None else gen.noise_clamp)
+            steps, clamped = int(lsd.max()), "vec"
+            lsd_t = self.put(lsd, torch.int64)
+            clamp = self.put(clamp_vec, torch.float32)
+            tables = flow_mlp.time_embedding_tables(params["flow"], steps)
+            table = tables[lsd_t - 1].transpose(0, 1)  # [steps, B, dim]
+        else:
+            steps, clamped, lsd_t, clamp = gen.lsd_decode_steps, None, None, gen.noise_clamp
+            table = flow_mlp.time_embedding_table(params["flow"], steps)
         kc, vc = state["kc"], state["vc"]
         pos, latent = state["pos"], state["latent"]
         latents, eos_logits = [], []
-        table = flow_mlp.time_embedding_table(params["flow"], gen.lsd_decode_steps)
         for _ in range(n_frames):
-            noise = flow_lm.sample_noise(generator, (b, self.ldim), gen.temp,
-                                         gen.noise_clamp, self.device)
+            noise = flow_lm.sample_noise(generator, (b, self.ldim), temp, clamp, self.device,
+                                         clamped=clamped)
             latent, eos_logit, _, _, pos = flow_lm.step(
-                params, self.cfg, kc, vc, pos, latent, noise, table, gen.lsd_decode_steps)
+                params, self.cfg, kc, vc, pos, latent, noise, table, steps, lsd_vec=lsd_t)
             latents.append(latent)
             eos_logits.append(eos_logit)
         denorm = flow_lm.denormalize(params, torch.stack(latents, dim=1))  # [B, K, ldim]
         audio, mimi_state = mimi.decode_step(self.params["mimi"], self.plans, state["mimi"],
                                              denorm.transpose(1, 2))
-        is_eos = torch.stack(eos_logits, dim=-1) > gen.eos_threshold
+        is_eos = torch.stack(eos_logits, dim=-1) > eos_th
         self.frames_decoded += n_frames
+        self.flow_evals += n_frames * steps
         new_state = {"kc": kc, "vc": vc, "pos": pos, "latent": latent, "mimi": mimi_state}
         return new_state, self._pcm16(audio), is_eos
 

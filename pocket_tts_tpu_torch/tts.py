@@ -83,12 +83,18 @@ class TTSModel:
         noise_clamp: float | None = DEFAULT_NOISE_CLAMP,
         eos_threshold: float = DEFAULT_EOS_THRESHOLD,
         seed: int = 0,
+        voice_prompt_chunk_frames: int | None = None,
         max_seq: int | None = None,
         device: torch.device | str | None = None,
     ) -> "TTSModel":
         """``device`` defaults to ``cuda`` when a card is visible, else ``cpu``.
-        ``max_seq`` overrides the FlowLM KV-cache capacity (default 1024)."""
+        ``voice_prompt_chunk_frames`` overrides the chunk size of the streaming
+        voice encoder (prompts over 30 s; default 240 frames).  ``max_seq``
+        overrides the FlowLM KV-cache capacity (default 1024)."""
         cfg = load_variant(variant)
+        if voice_prompt_chunk_frames is not None:
+            cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+                cfg.runtime, voice_prompt_chunk_frames=voice_prompt_chunk_frames))
         if max_seq is not None:
             if max_seq < 256:
                 raise ValueError(f"max_seq must be >= 256, got {max_seq}")

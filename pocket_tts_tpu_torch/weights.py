@@ -7,6 +7,8 @@ tensors.  A small numpy safetensors reader and writer replace the
 ``safetensors`` package; without a checkpoint the loader falls back to a
 deterministic random init at full width (numpy only), with the same keys,
 shapes and init families as the JAX package's ``random_params``.
+``hf://owner/repo/file@rev`` URIs resolve through the local Hugging Face
+cache, read by path; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
 import struct
 from pathlib import Path
 
@@ -26,12 +29,49 @@ from pocket_tts_tpu_torch.models.mimi import MimiPlans
 logger = logging.getLogger(__name__)
 
 _ST_DTYPES = {"F32": np.float32, "F16": np.float16}
+_HF_RE = re.compile(r"^hf://(?P<owner>[^/]+)/(?P<repo>[^/]+)/(?P<file>.+?)(@(?P<rev>[^@]+))?$")
+
+
+def _hf_cache_dir() -> Path:
+    """The hub cache: $HF_HUB_CACHE, else $HF_HOME/hub, else
+    ~/.cache/huggingface/hub (the ``huggingface_hub`` defaults)."""
+    if os.environ.get("HF_HUB_CACHE"):
+        return Path(os.environ["HF_HUB_CACHE"])
+    home = os.environ.get("HF_HOME") or Path.home() / ".cache" / "huggingface"
+    return Path(home) / "hub"
+
+
+def resolve_uri(uri: str | Path) -> Path:
+    """``hf://owner/repo/file@rev`` -> the file in the local Hugging Face
+    cache (``models--owner--repo/snapshots/<commit>/file``; a branch or tag
+    revision, or none for ``main``, is read from ``refs/``).  Any other string
+    is a local path.  With no cached file it raises ``FileNotFoundError``, as
+    the JAX package does offline: downloading is not ported."""
+    if isinstance(uri, Path) or not str(uri).startswith("hf://"):
+        return Path(uri)
+    m = _HF_RE.match(str(uri))
+    if not m:
+        raise ValueError(f"Bad hf:// URI: {uri}")
+    repo_dir = _hf_cache_dir() / f"models--{m['owner']}--{m['repo']}"
+    rev = m["rev"] or "main"
+    ref = repo_dir / "refs" / rev
+    commit = ref.read_text().strip() if ref.is_file() else rev
+    path = repo_dir / "snapshots" / commit / m["file"]
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"{uri} is not in the local Hugging Face cache (looked for {path}); "
+            "downloading is not supported: place the file there")
+    return path
 
 
 def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
-    """safetensors file -> {name: float32 array} for F32, F16 and BF16 tensors
-    (8-byte little-endian header length, JSON header, packed data)."""
-    data = Path(path).read_bytes()
+    """safetensors file -> {name: float32 array} (see ``read_safetensors_bytes``)."""
+    return read_safetensors_bytes(Path(path).read_bytes(), str(path))
+
+
+def read_safetensors_bytes(data: bytes, name: str = "<bytes>") -> dict[str, np.ndarray]:
+    """safetensors bytes -> {name: float32 array} for F32, F16 and BF16
+    tensors (8-byte little-endian header length, JSON header, packed data)."""
     (header_len,) = struct.unpack_from("<Q", data, 0)
     header = json.loads(data[8:8 + header_len])
     base = 8 + header_len
@@ -47,7 +87,7 @@ def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
         elif dtype in _ST_DTYPES:
             arr = np.frombuffer(raw, _ST_DTYPES[dtype]).astype(np.float32)
         else:
-            raise ValueError(f"{path}: tensor {key} has unsupported dtype {dtype}")
+            raise ValueError(f"{name}: tensor {key} has unsupported dtype {dtype}")
         out[key] = arr.reshape(meta["shape"])
     return out
 
