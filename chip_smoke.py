@@ -9,10 +9,14 @@ result line):
    versions.  No CUDA device -> exit 1.
 2. Build: every CUDA kernel of the main path, with nvcc, from the sources in
    this checkout (into build/pocket_tts_tpu_torch/).
-3. Kernel against plain: ``flow_blocks`` at flagship dims (dim 512, depth 6,
-   B in {1, 4, 16}: single stream and the batch phase's two slot counts)
-   against its plain PyTorch version, float32 with TF32 off; median times
-   over 100 runs with CUDA events.
+3. Kernel against plain: ``flow_blocks`` (one cooperative launch per call)
+   against its plain PyTorch version at every shape of ``KERNEL_SHAPES``,
+   float32 with TF32 off; a lane alone against the same lane inside B=16,
+   bit for bit; one call captured in a CUDA graph against eager; then at
+   dim 512, depth 6, B in {1, 4, 16}: cold and warm device us from CUDA
+   graphs, the bound and roofline share, the plain chain in a CUDA graph as
+   the yardstick, and the wrapper's median ms over 100 runs (the method
+   of the kernel's earlier rows in PERF.md).
 4. Main path: ``TTSModel.load`` of the flagship variant (random weights from
    a seed; bf16 backbone, f32 flow net and codec) with an unreachable EOS
    threshold, ``generate`` of three sentences with the kernel launch count
@@ -53,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -67,7 +72,17 @@ import torch
 TEXT = ("The quick brown fox jumps over the lazy dog near the river bank. "
         "Streaming speech synthesis turns text into audio one frame at a time. "
         "Each frame carries eighty milliseconds of sound.")
-KERNEL_TOL = 1e-4  # f32 sums in another order over six chained 512-wide products
+KERNEL_TOL = 1e-4  # f32 sums in another order over `depth` chained dim-wide products
+# flow_blocks against its plain version, (batch, dim, depth): the flagship at
+# the main path's and the batcher's B, B = 3 and B = 113 (the largest B the
+# earlier multi-launch design took), the widest dim at depth 1, a shape whose weights stream
+# through a ring (dim 1024, depth 6) and the small test config's width
+KERNEL_SHAPES = ((1, 512, 6), (4, 512, 6), (16, 512, 6), (3, 512, 6), (113, 512, 6),
+                 (16, 1024, 1), (4, 1024, 6), (1, 64, 3), (16, 64, 3))
+TIMED_BATCHES = (1, 4, 16)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+FLUSH_BYTES = 256 << 20  # a write this size evicts the 50 MB L2
 REF_TOL_LSB = 2  # int16 LSB: f32 on the card vs f32 on the CPU, after PCM rounding
 # voice conditioning, f32 both sides, TF32 off, sums in another order:
 # max abs err <= COND_TOL * max(1, max |reference|)
@@ -119,13 +134,19 @@ def phase_build():
     t0 = time.perf_counter()
     path = fb.build()
     print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    # nvcc -Xptxas -v, one line per kernel instantiation <group, float4 chunks per lane>
+    entry, spill = "?", ""
+    for line in path.with_suffix(".ptxas.txt").read_text().splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"\d([a-z_]+_kernel)ILi(\d+)ELi(\d+)E", line)
+            entry = f"{m[1]}<{m[2]}, {m[3]}>" if m else line.strip()
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            print(f"build: ptxas {entry}: {line.split(':', 1)[-1].strip()}; {spill}")
 
 
-def phase_kernel(dev) -> dict:
-    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
-
-    g = torch.Generator().manual_seed(0)
-    dim, depth = 512, 6
+def _random_blocks(g, dim: int, depth: int, dev) -> dict:
     bound = dim ** -0.5
 
     def uniform(*shape):
@@ -139,23 +160,148 @@ def phase_kernel(dev) -> dict:
               "mlp1_b": torch.randn(depth, dim, generator=g) * 0.1,
               "mlp2_w": uniform(depth, dim, dim),
               "mlp2_b": torch.randn(depth, dim, generator=g) * 0.1}
-    blocks = {k: v.to(dev) for k, v in blocks.items()}
-    out = {}
-    for batch in (1, 4, 16):
-        sy = torch.nn.functional.silu(torch.randn(batch, dim, generator=g)).to(dev)
-        h0 = torch.randn(batch, dim, generator=g).to(dev)
+    return {k: v.to(dev) for k, v in blocks.items()}
+
+
+def _random_inputs(g, batch: int, dim: int, dev):
+    sy = torch.nn.functional.silu(torch.randn(batch, dim, generator=g)).to(dev)
+    return sy, torch.randn(batch, dim, generator=g).to(dev)
+
+
+def _capture(fn, reps: int = 1, flush=None) -> torch.cuda.CUDAGraph:
+    """A CUDA graph of [flush (if given), fn x reps]."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        if flush is not None:
+            flush()
+        for _ in range(reps):
+            fn()
+    return graph
+
+
+def _replay_us(graph, n: int = 20) -> float:
+    """Median device us of one replay of `graph`, CUDA events, n replays."""
+    graph.replay()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3)
+    return statistics.median(times)
+
+
+def _flow_cost(blocks: dict, batch: int, dim: int) -> tuple[float, str]:
+    """(bound us, "bytes" or "operations"): each weight and activation byte
+    read once and h written once, over the HBM rate; 2 FLOP per weight per
+    lane over the f32 CUDA-core peak."""
+    weights = sum(t.numel() for t in blocks.values())
+    nbytes = 4 * (weights + 3 * batch * dim)
+    depth = blocks["ada_w"].shape[0]
+    flops = 2 * batch * depth * 5 * dim * dim
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e6, flops / F32_FLOPS * 1e6
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernel(dev) -> dict:
+    """flow_blocks against its plain version at every shape of KERNEL_SHAPES,
+    a lane alone against the same lane inside B=16 (bit for bit), one call
+    in a CUDA graph against eager, and at dim 512 / depth 6 for B in
+    TIMED_BATCHES: cold device us (graph of [256 MB write, call] minus the
+    write's graph), warm device us (graph of 20 calls / 20), the graph of
+    the plain chain (cold and warm) as the yardstick, in turns (plain,
+    kernel, kernel, plain), and the wrapper's median ms as PERF.md's earlier rows."""
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+
+    g = torch.Generator().manual_seed(0)
+    errs = []
+    for batch, dim, depth in KERNEL_SHAPES:
+        blocks = _random_blocks(g, dim, depth, dev)
+        sy, h0 = _random_inputs(g, batch, dim, dev)
         got = fb.flow_blocks(sy, h0, blocks)
         torch.cuda.synchronize()
         ref = fb.flow_blocks_reference(sy, h0, blocks)
         err = (got - ref).abs().max().item()
-        _require(bool(torch.isfinite(got).all()), f"flow_blocks B={batch}: non-finite output")
-        _require(err <= KERNEL_TOL, f"flow_blocks B={batch}: max abs err {err} > {KERNEL_TOL}")
-        ms = _median_ms(lambda: fb.flow_blocks(sy, h0, blocks))
-        plain_ms = _median_ms(lambda: fb.flow_blocks_reference(sy, h0, blocks))
+        _require(bool(torch.isfinite(got).all()), f"flow_blocks {batch}x{dim}x{depth}: non-finite")
+        _require(err <= KERNEL_TOL, f"flow_blocks B={batch} dim={dim} depth={depth}: "
+                                    f"max abs err {err} > {KERNEL_TOL}")
+        plan = fb._plans[(batch, dim, depth, sy.device.index)]
         print(f"kernel flow_blocks B={batch} dim={dim} depth={depth}: max_abs_err {err:.3e} "
-              f"(tol {KERNEL_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"(median of 100, CUDA events)")
-        out[batch] = {"err": err, "ms": ms, "plain_ms": plain_ms}
+              f"(tol {KERNEL_TOL}); plan grid {plan.grid} rows {plan.rows} "
+              f"{'resident' if plan.resident else 'streamed'} slots {plan.slots} "
+              f"tile {plan.tile} smem {plan.smem} B")
+        errs.append(err)
+
+    dim, depth = 512, 6
+    blocks = _random_blocks(g, dim, depth, dev)
+    sy, h0 = _random_inputs(g, 16, dim, dev)
+    batched = fb.flow_blocks(sy, h0, blocks)
+    for b in (0, 7, 15):
+        alone = fb.flow_blocks(sy[b:b + 1].contiguous(), h0[b:b + 1].contiguous(), blocks)
+        _require(torch.equal(alone[0], batched[b]), f"lane {b}: B=1 differs from inside B=16")
+    _require(torch.equal(fb.flow_blocks(sy, h0, blocks), batched), "B=16 differs run to run")
+    print("kernel flow_blocks: lanes 0, 7, 15 alone (B=1) == the same lanes inside B=16, "
+          "bit for bit; B=16 bit-identical run to run")
+
+    holder = {}
+    graph = _capture(lambda: holder.__setitem__("out", fb.flow_blocks(sy, h0, blocks)))
+    holder["out"].zero_()
+    launches = fb.flow_blocks.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    _require(fb.flow_blocks.launches == launches, "a graph replay went through the wrapper")
+    _require(torch.equal(holder["out"], batched), "CUDA-graph replay differs from eager")
+    print("kernel flow_blocks: one call captured in a CUDA graph (cooperative launch) "
+          "replays to the eager result bit for bit")
+
+    flush_buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def flush():
+        flush_buf.fill_(1.0)
+
+    out = {"max_abs_err": max(errs)}
+    for batch in TIMED_BATCHES:
+        sy_b, h0_b = _random_inputs(g, batch, dim, dev)
+
+        def kern():
+            return fb.flow_blocks(sy_b, h0_b, blocks)
+
+        def plain():
+            return fb.flow_blocks_reference(sy_b, h0_b, blocks)
+
+        graphs = {"flush": _capture(flush),
+                  "kernel_cold": _capture(kern, flush=flush),
+                  "plain_cold": _capture(plain, flush=flush),
+                  "kernel_warm": _capture(kern, reps=20),
+                  "plain_warm": _capture(plain, reps=20)}
+        turns = {k: [] for k in graphs}
+        for name in ("flush", "plain_cold", "kernel_cold", "kernel_cold", "plain_cold", "flush",
+                     "plain_warm", "kernel_warm", "kernel_warm", "plain_warm"):
+            turns[name].append(_replay_us(graphs[name]))
+        med = {k: statistics.mean(v) for k, v in turns.items()}
+        cold = med["kernel_cold"] - med["flush"]
+        plain_cold = med["plain_cold"] - med["flush"]
+        warm, plain_warm = med["kernel_warm"] / 20, med["plain_warm"] / 20
+        bound_us, bound_by = _flow_cost(blocks, batch, dim)
+        ms = _median_ms(kern)
+        plain_ms = _median_ms(plain)
+        print(f"kernel flow_blocks B={batch} dim={dim} depth={depth}: device cold {cold:.3f} us "
+              f"(graph of [256 MB write, call] {med['kernel_cold']:.3f} minus write "
+              f"{med['flush']:.3f}), warm {warm:.3f} us (graph of 20 / 20); bound {bound_us:.3f} "
+              f"us by {bound_by}, roofline share {bound_us / cold:.4f} cold, "
+              f"{bound_us / warm:.4f} warm; yardstick: plain chain in a CUDA graph cold "
+              f"{plain_cold:.3f} us, warm {plain_warm:.3f} us; wrapper (median of 100, events) "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms; turns {json.dumps(turns)}")
+        out[batch] = {"ms": ms, "plain_ms": plain_ms, "device_us_cold": cold,
+                      "device_us_warm": warm, "bound_us": bound_us, "bound_by": bound_by,
+                      "roofline_share": bound_us / cold, "graph_plain_us": plain_cold,
+                      "graph_plain_us_warm": plain_warm}
+    del flush_buf
+    torch.cuda.empty_cache()
     return out
 
 
@@ -704,16 +850,22 @@ def main() -> None:
     phase_reference()
     voice_launches = phase_voice(model)
     batch_launches = phase_batch(model)
+    per_b = {key: {str(b): kern[b][key] for b in TIMED_BATCHES}
+             for key in ("device_us_cold", "device_us_warm", "bound_us", "roofline_share",
+                         "graph_plain_us", "graph_plain_us_warm")}
     print(json.dumps({"kernels": [{
         "name": "flow_blocks", "route": "cuda",
         "source": "pocket_tts_tpu_torch/csrc/flow_blocks.cu",
         "replaces": "pocket_tts_tpu/ops/pallas/flow_kernel.py:107",
         "launches": launches, "launches_voice": voice_launches,
         "launches_batch": batch_launches,
-        "max_abs_err": max(k["err"] for k in kern.values()),
+        "max_abs_err": kern["max_abs_err"],
         "ms": kern[1]["ms"], "plain_ms": kern[1]["plain_ms"],
+        "bound_ms": kern[1]["bound_us"] / 1e3, "bound_by": kern[1]["bound_by"],
+        "library_ms": None,
         "ms_b4": kern[4]["ms"], "plain_ms_b4": kern[4]["plain_ms"],
         "ms_b16": kern[16]["ms"], "plain_ms_b16": kern[16]["plain_ms"],
+        **per_b,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

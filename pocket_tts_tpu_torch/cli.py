@@ -7,8 +7,8 @@ those subcommands of ``pocket_tts_tpu/cli.py``).
 ``generate --stream`` writes raw s16le PCM to stdout.  ``batch`` synthesizes
 a manifest (plain lines, or JSONL ``{"text", "voice"?, "output"?}``)
 concurrently through the continuous batcher, one WAV per line.  ``--device``
-picks the torch device (default ``cuda`` when a card is visible); its name
-is printed on stderr.
+picks the torch device (default ``cuda``; with no card visible the command
+fails unless ``--device cpu`` is given); its name is printed on stderr.
 """
 
 from __future__ import annotations
@@ -33,18 +33,20 @@ def _add_gen_params(p: argparse.ArgumentParser) -> None:
     p.add_argument("--noise-clamp", type=float, default=None)
     p.add_argument("--frames-after-eos", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when a GPU is visible, else cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda; --device cpu runs on the CPU)")
 
 
 def _load_model(args):
     from pocket_tts_tpu_torch.tts import TTSModel
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is visible; "
+                           "pass --device cpu to run on the CPU")
     return TTSModel.load_with_params(
         args.variant, temp=args.temperature, lsd_decode_steps=args.lsd_decode_steps,
         noise_clamp=args.noise_clamp, eos_threshold=args.eos_threshold,
-        seed=args.seed, device=device)
+        seed=args.seed, device=args.device)
 
 
 def _print_device(model) -> None:

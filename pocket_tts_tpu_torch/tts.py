@@ -85,9 +85,10 @@ class TTSModel:
         seed: int = 0,
         voice_prompt_chunk_frames: int | None = None,
         max_seq: int | None = None,
-        device: torch.device | str | None = None,
+        device: torch.device | str = "cuda",
     ) -> "TTSModel":
-        """``device`` defaults to ``cuda`` when a card is visible, else ``cpu``.
+        """``device`` defaults to ``cuda``; with no card visible that raises
+        RuntimeError, and the CPU runs only when asked (``device="cpu"``).
         ``voice_prompt_chunk_frames`` overrides the chunk size of the streaming
         voice encoder (prompts over 30 s; default 240 frames).  ``max_seq``
         overrides the FlowLM KV-cache capacity (default 1024)."""
@@ -100,8 +101,9 @@ class TTSModel:
                 raise ValueError(f"max_seq must be >= 256, got {max_seq}")
             cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime,
                                                                        max_seq=max_seq))
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"TTSModel.load: device {str(device)!r} but no CUDA device is "
+                               "visible; pass device=\"cpu\" to run on the CPU")
         params, real = weights_mod.load_params(cfg, variant=variant)
         gen = GenParams(temp=temp, lsd_decode_steps=lsd_decode_steps,
                         noise_clamp=noise_clamp, eos_threshold=eos_threshold)

@@ -283,6 +283,8 @@ def test_batch_write_failure_is_per_item(cli_model, tmp_path, monkeypatch):
 
 
 def test_device_flag_defaults_to_the_visible_card(monkeypatch):
+    """``--device`` defaults to cuda whether or not a card is visible here;
+    ``--device cpu`` is passed through."""
     seen = {}
 
     def fake_load(variant, **kw):
@@ -290,12 +292,41 @@ def test_device_flag_defaults_to_the_visible_card(monkeypatch):
         raise SystemExit(0)
 
     monkeypatch.setattr(TTSModel, "load_with_params", staticmethod(fake_load))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     args = cli.build_parser().parse_args(["generate", "--text", "x"])
+    assert args.device == "cuda"
     with pytest.raises(SystemExit):
         cli._load_model(args)
-    assert seen["device"] == ("cuda" if torch.cuda.is_available() else "cpu")
+    assert seen["device"] == "cuda"
     args = cli.build_parser().parse_args(["batch", "--manifest", "m", "--device", "cpu"])
     assert args.batch_size == 16 and args.chunk_frames == 64
     with pytest.raises(SystemExit):
         cli._load_model(args)
     assert seen["device"] == "cpu"
+
+
+@pytest.mark.parametrize("command", [["generate", "--text", "x"], ["batch", "--manifest", "m"]])
+def test_cli_without_a_card_raises_unless_cpu_is_asked(monkeypatch, command):
+    """No silent CPU run: the cuda default with no card visible raises and
+    names ``--device cpu``; the model is never loaded."""
+    def no_load(variant, **kw):
+        raise AssertionError("the model must not load")
+
+    monkeypatch.setattr(TTSModel, "load_with_params", staticmethod(no_load))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli._load_model(cli.build_parser().parse_args(command))
+
+
+def test_load_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    """``TTSModel.load()`` asks for cuda; with no card visible it raises and
+    names ``device="cpu"`` before any weights load."""
+    import inspect
+
+    assert inspect.signature(TTSModel.load_with_params).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tweights, "load_params",
+                        lambda *a, **kw: pytest.fail("weights loaded without a device"))
+    for call in (lambda: TTSModel.load(), lambda: TTSModel.load_with_params(device="cuda:0")):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()

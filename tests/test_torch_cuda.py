@@ -24,29 +24,40 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _flagship_blocks(device, seed):
+def _blocks(device, seed, dim=512, depth=6):
     g = torch.Generator().manual_seed(seed)
-    dim, depth = 512, 6
+    bound = dim ** -0.5
     blocks = {
-        "ada_w": torch.rand(depth, 3 * dim, dim, generator=g) * 0.088 - 0.044,
+        "ada_w": (torch.rand(depth, 3 * dim, dim, generator=g) * 2 - 1) * bound,
         "ada_b": torch.randn(depth, 3 * dim, generator=g) * 0.1,
         "ln_w": 1 + torch.randn(depth, dim, generator=g) * 0.1,
         "ln_b": torch.randn(depth, dim, generator=g) * 0.1,
-        "mlp1_w": torch.rand(depth, dim, dim, generator=g) * 0.088 - 0.044,
+        "mlp1_w": (torch.rand(depth, dim, dim, generator=g) * 2 - 1) * bound,
         "mlp1_b": torch.randn(depth, dim, generator=g) * 0.1,
-        "mlp2_w": torch.rand(depth, dim, dim, generator=g) * 0.088 - 0.044,
+        "mlp2_w": (torch.rand(depth, dim, dim, generator=g) * 2 - 1) * bound,
         "mlp2_b": torch.randn(depth, dim, generator=g) * 0.1,
     }
     return {k: v.to(device) for k, v in blocks.items()}, g
 
 
-@pytest.mark.parametrize("batch", [1, 16])
-def test_flow_blocks_kernel_matches_plain_on_cuda(cuda_device, batch):
-    """Flagship dims (dim 512, depth 6).  1e-4: both sides accumulate f32 in
-    different orders over 6 chained 512-wide products."""
-    blocks, g = _flagship_blocks(cuda_device, batch)
-    sy = torch.nn.functional.silu(torch.randn(batch, 512, generator=g)).to(cuda_device)
-    h0 = torch.randn(batch, 512, generator=g).to(cuda_device)
+def _inputs(g, batch, dim, device):
+    sy = torch.nn.functional.silu(torch.randn(batch, dim, generator=g)).to(device)
+    return sy, torch.randn(batch, dim, generator=g).to(device)
+
+
+# (batch, dim, depth): the flagship at the main path's and the batcher's B,
+# B = 3 and the largest B of the earlier multi-launch design (113), the widest dim at depth 1,
+# a streamed (ring) shape, and the small test config's width
+KERNEL_SHAPES = [(1, 512, 6), (3, 512, 6), (4, 512, 6), (16, 512, 6), (113, 512, 6),
+                 (16, 1024, 1), (4, 1024, 6), (1, 64, 3), (16, 64, 3)]
+
+
+@pytest.mark.parametrize("batch,dim,depth", KERNEL_SHAPES)
+def test_flow_blocks_kernel_matches_plain_on_cuda(cuda_device, batch, dim, depth):
+    """1e-4: both sides accumulate f32 in different orders over `depth`
+    chained dim-wide products."""
+    blocks, g = _blocks(cuda_device, batch, dim, depth)
+    sy, h0 = _inputs(g, batch, dim, cuda_device)
     launches = fb.flow_blocks.launches
     got = fb.flow_blocks(sy, h0, blocks)
     torch.cuda.synchronize()
@@ -55,9 +66,38 @@ def test_flow_blocks_kernel_matches_plain_on_cuda(cuda_device, batch):
     assert (got - ref).abs().max().item() <= 1e-4
 
 
+def test_flow_blocks_lane_is_bit_identical_at_any_batch(cuda_device):
+    """A lane's result does not depend on B or on the other lanes: the same
+    row alone (B = 1) and at every position of a B = 16 batch, bit for bit."""
+    blocks, g = _blocks(cuda_device, 7)
+    sy, h0 = _inputs(g, 16, 512, cuda_device)
+    batched = fb.flow_blocks(sy, h0, blocks)
+    for b in (0, 5, 15):
+        alone = fb.flow_blocks(sy[b:b + 1].contiguous(), h0[b:b + 1].contiguous(), blocks)
+        assert torch.equal(alone[0], batched[b])
+    assert torch.equal(fb.flow_blocks(sy, h0, blocks), batched)  # run to run
+
+
+def test_flow_blocks_cuda_graph_replays_eager(cuda_device):
+    """One call captured in a CUDA graph (a cooperative launch) replays to the
+    eager result."""
+    blocks, g = _blocks(cuda_device, 8)
+    sy, h0 = _inputs(g, 4, 512, cuda_device)
+    eager = fb.flow_blocks(sy, h0, blocks)
+    fb.flow_blocks(sy, h0, blocks)  # plan and library ready before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fb.flow_blocks(sy, h0, blocks)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
 def test_flow_blocks_raises_on_cuda_input_it_cannot_take(cuda_device):
     """On CUDA the wrapper launches the kernel or raises: never the plain path."""
-    blocks, g = _flagship_blocks(cuda_device, 0)
+    blocks, g = _blocks(cuda_device, 0)
     sy = torch.randn(1, 512, generator=g).to(cuda_device)
     launches = fb.flow_blocks.launches
     with pytest.raises(TypeError, match="float32"):

@@ -96,3 +96,62 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(params):
         fb._check(sy, torch.zeros(3, 64), blocks)
     with pytest.raises(ValueError, match="device"):
         fb.flow_blocks(sy.to("meta"), h0, blocks)
+
+
+SMEM_LIMIT = 232_448  # shared memory one CTA may use on Hopper
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+@pytest.mark.parametrize("depth", [1, 3, 6])
+@pytest.mark.parametrize("dim", [64, 512, 1024])
+@pytest.mark.parametrize("batch", [1, 3, 4, 16, 64, 113])
+def test_launch_plan(batch, dim, depth, sms):
+    """The cooperative launch's plan, as the kernel reads it: each output row
+    of each stage and each modulation row has exactly one CTA, the batch
+    tiles cover 0..B once, the shared memory fits, and the weights stay
+    resident exactly when all 2 * depth slices fit beside the modulation
+    ring and one group of lanes."""
+    plan = fb.launch_plan(batch, dim, depth, sms)
+    assert 1 <= plan.grid <= sms and plan.stages == 2 * depth
+    owners = [0] * dim
+    for cta in range(plan.grid):
+        for row in range(cta * plan.rows, min((cta + 1) * plan.rows, dim)):
+            owners[row] += 1
+    assert owners == [1] * dim
+    lanes = [0] * batch
+    for b0 in range(0, batch, plan.tile):
+        for b in range(b0, min(b0 + plan.tile, batch)):
+            lanes[b] += 1
+    assert lanes == [1] * batch
+    assert plan.group == min(8, 1 << (batch - 1).bit_length())
+    assert plan.tile % plan.group == 0
+    assert plan.group <= plan.tile <= -(-batch // plan.group) * plan.group
+    mod_owners = [0] * (3 * dim)  # of each block's modulation rows
+    for cta in range(plan.grid):
+        for row in range(cta * plan.mrows, min((cta + 1) * plan.mrows, 3 * dim)):
+            mod_owners[row] += 1
+    assert mod_owners == [1] * (3 * dim)
+    assert plan.mrows % 4 == 0  # the bias copies stay 16-byte aligned
+    bars = lambda n: (n * 8 + 15) // 16 * 16  # noqa: E731 - one mbarrier per slot
+    # a modulation chunk holds 8 rows and their 8 biases
+    slice_bytes, chunk_bytes, lane_bytes = plan.rows * dim * 4, 8 * (dim + 1) * 4, 2 * dim * 4
+    assert plan.smem == (bars(plan.slots + plan.mslots) + plan.slots * slice_bytes
+                         + plan.mslots * chunk_bytes + plan.tile * lane_bytes)
+    assert plan.smem <= SMEM_LIMIT
+    per_block = -(-plan.mrows // 8)
+    ring = min(2, per_block)
+    fits = (bars(2 * depth + ring) + 2 * depth * slice_bytes + ring * chunk_bytes
+            + plan.group * lane_bytes <= SMEM_LIMIT)
+    assert plan.resident == fits
+    assert 1 <= plan.mslots <= 2 * per_block
+    assert plan.mslots >= ring or not fits
+    assert 1 <= plan.slots <= (2 * depth if fits else 4)
+
+
+def test_launch_plan_takes_every_batch_up_to_113():
+    """Every B <= 113 at dim 512 (the earlier multi-launch design's limit) is
+    accepted at the flagship depth, with the weights resident."""
+    for sms in (114, 132):
+        for batch in range(1, 114):
+            plan = fb.launch_plan(batch, 512, 6, sms)
+            assert plan.resident and plan.smem <= SMEM_LIMIT
