@@ -48,6 +48,24 @@ result line):
    preemptions, each stream's segments in order.  (d) The CLI as
    subprocesses: ``batch --device cuda`` on a 4-line manifest (one JSONL line
    with a voice WAV) and ``generate --device cuda -o``.
+8. Narrow: int8 / int4 weights, the fp8 KV cache and the mu-law wire at full
+   width.  (a) ``qlinear`` against its plain version at M in {1, 4, 16, 32}
+   x the frame's (N, K), int8 and int4, bf16 and f32 x, an odd shape and the
+   stacked in_proj view, each within its stated tolerance.  (b) Cold and warm
+   device us of ``qlinear`` (bf16 x) from CUDA graphs as in phase 3, the
+   bound and share, the plain version, ``F.linear`` on the unquantized bf16
+   weight and ``torch._weight_int8pack_mm`` as yardsticks, and the wrapper's
+   median ms.  (c) ``quantize_model(bits=8)``: tensors, SNR, the artifact's
+   round trip bit for bit and its size.  (d) The int8 and int4 models in
+   f32 on the card against the CPU, 4 frames.  (e) ``generate`` on int8,
+   int4, int8 + fp8 e4m3 KV and int8 + fp8 + mu-law, with the flow_blocks
+   and qlinear launch counts checked (qlinear against the count the shape
+   rule predicts for every call the engine made), ms/frame and x-realtime;
+   int8 against bf16 at temp 0.  (f) mu-law encode on the card over every
+   int16 value, and mu-law ``generate`` against int16 within one step.  (g)
+   ``batched_tts(16, 64)`` on int8 + fp8: 16 requests, launch counts
+   checked.  (h) ``quantize --device cuda`` and ``generate --quantized
+   --device cuda`` as subprocesses.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -57,6 +75,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -129,21 +148,31 @@ def phase_environment() -> str:
 
 
 def phase_build():
+    """Both kernels' nvcc builds, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
 
     t0 = time.perf_counter()
-    path = fb.build()
-    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
-    # nvcc -Xptxas -v, one line per kernel instantiation <group, float4 chunks per lane>
-    entry, spill = "?", ""
-    for line in path.with_suffix(".ptxas.txt").read_text().splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"\d([a-z_]+_kernel)ILi(\d+)ELi(\d+)E", line)
-            entry = f"{m[1]}<{m[2]}, {m[3]}>" if m else line.strip()
-        elif "spill" in line:
-            spill = line.strip()
-        elif "registers" in line:
-            print(f"build: ptxas {entry}: {line.split(':', 1)[-1].strip()}; {spill}")
+    with ThreadPoolExecutor(2) as pool:
+        paths = [f.result() for f in [pool.submit(mod.build) for mod in (fb, ql)]]
+    print(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.2f} s "
+          f"(one nvcc per source, in parallel)")
+    # nvcc -Xptxas -v, one line per kernel instantiation: flow_chain_kernel<group,
+    # float4 chunks per lane>, qlinear_kernel<type, rows of x, packed int4>
+    for path in paths:
+        entry, spill = "?", ""
+        for line in path.with_suffix(".ptxas.txt").read_text().splitlines():
+            if "Compiling entry function" in line:
+                m = (re.search(r"\d([a-z_]+_kernel)ILi(\d+)ELi(\d+)E", line)
+                     or re.search(r"\d(qlinear_kernel)I(f|13__nv_bfloat16)Li(\d+)ELb(\d)E", line))
+                entry = f"{m[1]}<{', '.join(m.groups()[1:])}>" if m else line.strip()
+                entry = entry.replace("13__nv_bfloat16", "bf16").replace("<f,", "<f32,")
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                print(f"build: ptxas {entry}: {line.split(':', 1)[-1].strip()}; {spill}")
 
 
 def _random_blocks(g, dim: int, depth: int, dev) -> dict:
@@ -841,6 +870,493 @@ def phase_batch(model) -> int:
     return launches
 
 
+# -- phase 8: narrow storage ---------------------------------------------------
+
+NARROW_TEXT = "Eight bits."  # a 50-frame budget: one 64-frame chunk
+BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+# qlinear shapes: M (B) x (N, K) of the decode frame: in_proj as [3E, E], ff1,
+# ff2, the input linear
+QLINEAR_MS = (1, 4, 16, 32)
+QLINEAR_NK = ((3072, 1024), (4096, 1024), (1024, 4096), (1024, 32))
+QLINEAR_ODD = (3, 1000, 1002)
+MULAW_STEP = (1 << 10) / 32767.0  # worst-case companding step, float audio
+
+
+def _qlinear_tol(dtype, ref: torch.Tensor) -> float:
+    """bf16: two bf16 ulps of max|y| (2^(floor(log2 max|y|) - 6)): each side
+    rounds its output to bf16 once, and the plain version also rounds each
+    dequantized weight to bf16 before its product (and sums in cuBLAS's
+    order) where the kernel sums q * x in f32 and applies the scale once.
+    f32: 1e-5 max(1, max|y|), sums in another order."""
+    top = ref.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        return 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 6)
+    return 1e-5 * max(1.0, top)
+
+
+def _qlinear_case(g, m, n, k, bits, dtype, dev):
+    from pocket_tts_tpu_torch.ops.qtensor import quantize_array
+
+    w32 = torch.randn(n, k, generator=g) * k ** -0.5
+    w = quantize_array(w32, bits=bits).to(dev).to(dtype)
+    x = torch.randn(m, k, generator=g).to(dev, dtype)
+    return w32, w, x
+
+
+def _narrow_kernel(dev) -> dict:
+    """(a) qlinear against its plain version at every shape, int8 and int4,
+    bf16 and f32 x, an odd shape and the stacked in_proj view."""
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.ops.qtensor import quantize_array
+
+    g = torch.Generator().manual_seed(0)
+    shapes = [(m, n, k) for m in QLINEAR_MS for n, k in QLINEAR_NK] + [QLINEAR_ODD]
+    worst, worst_abs, lines = 0.0, 0.0, []
+    for m, n, k in shapes:
+        errs = []
+        for bits in (8, 4):
+            for dtype in (torch.bfloat16, torch.float32):
+                _, w, x = _qlinear_case(g, m, n, k, bits, dtype, dev)
+                b = (torch.randn(n, generator=g) * 0.1).to(dev, dtype)
+                got = ql.qlinear(x, w, b)
+                torch.cuda.synchronize()
+                ref = ql.qlinear_reference(x, w, b)
+                err = (got.float() - ref.float()).abs().max().item()
+                tol = _qlinear_tol(dtype, ref)
+                _require(bool(torch.isfinite(got).all()) and got.dtype == dtype,
+                         f"qlinear {m}x{n}x{k} int{bits} {dtype}: bad output")
+                _require(err <= tol, f"qlinear M={m} N={n} K={k} int{bits} {dtype}: "
+                                     f"max abs err {err} > {tol}")
+                errs.append(f"int{bits}/{str(dtype)[6:]} {err:.2e}<={tol:.2e}")
+                worst = max(worst, err / max(tol, 1e-30))
+                worst_abs = max(worst_abs, err)
+        lines.append(f"{m}x{n}x{k}: " + ", ".join(errs))
+    stack = quantize_array(torch.randn(6, 3, 1024, 1024, generator=g) * 0.03, channel_axes=3)
+    w = stack.to(dev).to(torch.bfloat16)[2]
+    x = torch.randn(1, 1, 1024, generator=g).to(dev, torch.bfloat16)
+    got, ref = ql.qlinear(x, w), ql.qlinear_reference(x, w)
+    err = (got.float() - ref.float()).abs().max().item()
+    _require(got.shape == (1, 1, 3072) and err <= _qlinear_tol(torch.bfloat16, ref),
+             f"qlinear stacked in_proj view: {tuple(got.shape)}, err {err}")
+    print("narrow: qlinear vs plain (max abs err <= tol, bias added; tol bf16 two ulps of "
+          "max|y|, "
+          "f32 1e-5 max(1, max|y|)): " + "; ".join(lines)
+          + f"; stacked in_proj [6,3,1024,1024][2] as [3072, 1024] bf16 {err:.2e}")
+    return {"worst_err_over_tol": worst, "max_abs_err": max(worst_abs, err)}
+
+
+def _narrow_times(dev) -> dict:
+    """(b) cold and warm device us of qlinear (bf16 x, the backbone's dtype)
+    at every shape, int8 and int4, with the plain version, F.linear on the
+    unquantized bf16 weight and torch._weight_int8pack_mm as yardsticks, in
+    turns; the bound; the wrapper's median ms."""
+    import torch.nn.functional as F
+
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+
+    flush_buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def flush():
+        flush_buf.fill_(1.0)
+
+    g = torch.Generator().manual_seed(1)
+    out, library_error = {}, None
+    for bits in (8, 4):
+        for n, k in QLINEAR_NK:
+            for m in QLINEAR_MS:
+                w32, w, x = _qlinear_case(g, m, n, k, bits, torch.bfloat16, dev)
+                wbf = w32.to(dev, torch.bfloat16)
+                fns = {"kernel": lambda: ql.qlinear(x, w),
+                       "plain": lambda: ql.qlinear_reference(x, w),
+                       "linear": lambda: F.linear(x, wbf)}
+                if bits == 8 and library_error is None:
+                    try:
+                        pack = torch._weight_int8pack_mm
+                        pack(x, w.q, w.scale)
+                        fns["int8pack"] = lambda: pack(x, w.q, w.scale)
+                    except (RuntimeError, NotImplementedError, AttributeError) as e:
+                        library_error = f"unsupported: {type(e).__name__}: {str(e)[:160]}"
+                graphs = {"flush": _capture(flush)}
+                for name, fn in fns.items():
+                    graphs[name + "_cold"] = _capture(fn, flush=flush)
+                    graphs[name + "_warm"] = _capture(fn, reps=20)
+                names = list(fns)
+                order = (["flush"] + [f"{a}_cold" for a in names + names[::-1]] + ["flush"]
+                         + [f"{a}_warm" for a in names + names[::-1]])
+                turns = {key: [] for key in graphs}
+                for key in order:
+                    turns[key].append(_replay_us(graphs[key]))
+                mean = {key: statistics.mean(v) for key, v in turns.items()}
+                nbytes = w.q.numel() + 2 * (n + m * k + m * n)
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
+                t_ops = 2 * m * n * k / BF16_TENSOR_FLOPS * 1e6
+                rec = {f"{a}_cold_us": mean[f"{a}_cold"] - mean["flush"] for a in names}
+                rec |= {f"{a}_warm_us": mean[f"{a}_warm"] / 20 for a in names}
+                rec |= {"bound_us": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                rec["share_cold"] = rec["bound_us"] / rec["kernel_cold_us"]
+                rec["share_warm"] = rec["bound_us"] / rec["kernel_warm_us"]
+                if m == 1 or (m == 16 and bits == 8):
+                    rec["ms"] = _median_ms(fns["kernel"])
+                    rec["plain_ms"] = _median_ms(fns["plain"])
+                    if "int8pack" in fns:
+                        rec["library_ms"] = _median_ms(fns["int8pack"])
+                out[(bits, m, n, k)] = rec
+                for graph in graphs.values():
+                    graph.reset()
+    del flush_buf
+    torch.cuda.empty_cache()
+    for (bits, m, n, k), r in out.items():
+        lib = (f", int8pack {r['int8pack_cold_us']:.3f}/{r['int8pack_warm_us']:.3f}"
+               if "int8pack_cold_us" in r else "")
+        ms = (f"; wrapper {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+              + (f", int8pack {r['library_ms']:.4f} ms" if "library_ms" in r else "")
+              if "ms" in r else "")
+        print(f"narrow: qlinear int{bits} M={m} {n}x{k} bf16: cold {r['kernel_cold_us']:.3f} us, "
+              f"warm {r['kernel_warm_us']:.3f} us; bound {r['bound_us']:.3f} us by "
+              f"{r['bound_by']}, share {r['share_cold']:.4f} cold / {r['share_warm']:.4f} warm; "
+              f"yardsticks cold/warm us: plain {r['plain_cold_us']:.3f}/{r['plain_warm_us']:.3f}, "
+              f"F.linear bf16 {r['linear_cold_us']:.3f}/{r['linear_warm_us']:.3f}{lib}{ms}")
+    print(f"narrow: torch._weight_int8pack_mm on CUDA: {library_error or 'timed above'}")
+    return {"per_shape": out, "library_error": library_error}
+
+
+def _flat(tree) -> list:
+    from pocket_tts_tpu_torch.runtime.quantize import _flatten_paths
+
+    return _flatten_paths(tree)
+
+
+def _narrow_artifact(model):
+    """(c) quantize_model(bits=8), its SNR, save_quantized -> load_quantized
+    bit for bit, and the artifact's bytes against float32."""
+    from pocket_tts_tpu_torch.ops.qtensor import QTensor
+    from pocket_tts_tpu_torch.runtime.quantize import (
+        load_quantized, quantize_model, save_quantized, snr_report)
+
+    t0 = time.perf_counter()
+    q8 = quantize_model(model, bits=8)
+    quant_s = time.perf_counter() - t0
+    snrs = snr_report(model.params, q8.params)
+    n_q = sum(isinstance(leaf, QTensor) for _, leaf in _flat(q8.params))
+    _require(n_q == len(snrs) > 5 and min(snrs.values()) > 25.0,
+             f"quantize_model: {n_q} tensors, min SNR {min(snrs.values())} dB")
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name) / "model.int8.safetensors"
+    save_quantized(q8.params, path)
+    loaded = dict(_flat(load_quantized(path)))
+    ours = dict(_flat(q8.params))
+    _require(sorted(loaded) == sorted(ours), "artifact: paths differ")
+    for key, leaf in ours.items():
+        got = loaded[key]
+        same = (torch.equal(got.q, leaf.q) and torch.equal(got.scale, leaf.scale)
+                if isinstance(leaf, QTensor) else torch.equal(got, leaf))
+        _require(same, f"artifact: {key} differs after the round trip")
+    f32_bytes = sum(t.numel() * 4 for _, t in _flat(model.params))
+    size = path.stat().st_size
+    tmp.cleanup()
+    print(f"narrow: quantize_model(bits=8) in {quant_s:.2f} s: {n_q} int8 tensors, SNR dB min "
+          f"{min(snrs.values()):.2f} mean {statistics.mean(snrs.values()):.2f}; "
+          f"save_quantized -> load_quantized bit-equal; artifact {size / 2**20:.1f} MiB against "
+          f"{f32_bytes / 2**20:.1f} MiB float32 ({size / f32_bytes:.3f})")
+    return q8
+
+
+def phase_narrow_reference(model):
+    """(d) the int8 and int4 models in float32 on the card (qlinear f32)
+    against the same models on the CPU (plain versions), 4 frames."""
+    from pocket_tts_tpu_torch import text
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams
+    from pocket_tts_tpu_torch.runtime.quantize import quantize_params
+
+    cfg = dataclasses.replace(model.config, runtime=dataclasses.replace(
+        model.config.runtime, compute_dtype="float32"))
+    prepared, _ = text.prepare_text_prompt("Hello, world.")
+    tokens, n = text.tokens_array(model.tokenizer, prepared)
+    gen = GenParams(temp=0.0, eos_threshold=float("inf"))
+    for bits in (8, 4):
+        qparams = quantize_params(model.params, bits)
+        outs, launches = [], 0
+        for device in ("cuda", "cpu"):
+            eng = Engine(cfg, qparams, device)
+            before = ql.qlinear.launches
+            state = eng.prefill_tokens(eng.new_state(), tokens, n)
+            _, pcm, _ = eng.decode_frames(state, 4, gen, torch.Generator(device=device))
+            outs.append(pcm.cpu().numpy().astype(np.int64))
+            launches += ql.qlinear.launches - before
+        lsb = int(np.abs(outs[0] - outs[1]).max())
+        _require(outs[0].shape == outs[1].shape == (1, 4 * cfg.mimi.frame_size), "shape")
+        _require(launches > 0, f"int{bits} f32 on the card launched no qlinear")
+        _require(lsb <= REF_TOL_LSB, f"int{bits} f32 card vs CPU: {lsb} int16 LSB")
+        print(f"narrow: int{bits} model in f32, 4 frames, card (qlinear, {launches} launches) "
+              f"vs CPU (plain): max {lsb} int16 LSB (bound {REF_TOL_LSB}), audio std "
+              f"{outs[0].std():.1f} LSB")
+
+
+class _ExpectedQlinear:
+    """The qlinear launches the shape rule predicts for what an engine runs
+    while it is watched: each frame's backbone, input and cond linears (B
+    rows), each flow evaluation's in_w, final_ada_w and final_w, each codec
+    transformer call of 16 * K * B rows and each prefill of B * bucket rows
+    when its rows are at most MAX_ROWS.  Counts the engine's calls by
+    wrapping its methods (on the instance, until ``close``)."""
+
+    def __init__(self, eng):
+        from pocket_tts_tpu_torch.kernels import qlinear as ql
+        from pocket_tts_tpu_torch.ops.qtensor import QTensor
+        from pocket_tts_tpu_torch.runtime.engine import _bucket
+
+        def layers(tree):
+            return sum(v.q.shape[0] for v in tree.values() if isinstance(v, QTensor))
+
+        fl, mm = eng.params["flow_lm"], eng.params["mimi"]
+        self.max_rows = ql.MAX_ROWS
+        self.backbone = layers(fl["tf"])
+        self.frame = self.backbone + sum(isinstance(w, QTensor)
+                                         for w in (fl["input_w"], fl["flow"]["cond_w"]))
+        self.flow = sum(isinstance(fl["flow"][key], QTensor)
+                        for key in ("in_w", "final_ada_w", "final_w"))
+        self.codec = layers(mm["dec_tf"]["layers"]) + sum(
+            isinstance(w, QTensor) for key, w in mm["dec_tf"].items() if key != "layers")
+        self.count = 0
+        self.eng = eng
+        buckets = eng._rcfg.text_buckets
+        orig = {name: getattr(eng, name) for name in
+                ("decode_frames", "prefill_tokens", "admit_prefill_slot")}
+
+        def decode_frames(state, k, *a, **kw):
+            b, evals = state["pos"].shape[0], eng.flow_evals
+            out = orig["decode_frames"](state, k, *a, **kw)
+            steps = (eng.flow_evals - evals) // k
+            if b <= self.max_rows:
+                self.count += k * (self.frame + steps * self.flow)
+            if 16 * k * b <= self.max_rows:
+                self.count += self.codec
+            return out
+
+        def prefill_tokens(state, tokens, n_valid):
+            rows = tokens.shape[0] * _bucket(tokens.shape[1], buckets)
+            self.count += self.backbone if rows <= self.max_rows else 0
+            return orig["prefill_tokens"](state, tokens, n_valid)
+
+        def admit_prefill_slot(state, slot, vs, row, n):
+            self.count += self.backbone if row.shape[1] <= self.max_rows else 0
+            return orig["admit_prefill_slot"](state, slot, vs, row, n)
+
+        for name, fn in (("decode_frames", decode_frames), ("prefill_tokens", prefill_tokens),
+                         ("admit_prefill_slot", admit_prefill_slot)):
+            setattr(eng, name, fn)
+
+    def close(self):
+        for name in ("decode_frames", "prefill_tokens", "admit_prefill_slot"):
+            delattr(self.eng, name)
+
+
+def _narrow_generate(model, q8) -> dict:
+    """(e) generate on the bf16 model's narrow variants, launch counts checked;
+    (f) mu-law encode on the card over every int16 value, and mu-law
+    generate against int16 within one companding step."""
+    from pocket_tts_tpu_torch import TTSModel
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.ops import mulaw
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+    from pocket_tts_tpu_torch.runtime.quantize import quantize_model
+
+    def variant(kv_dtype=None, transport=None, bits=None):
+        cfg = TTSModel._apply_config_overrides(model.config, kv_dtype=kv_dtype,
+                                               transport_format=transport)
+        m = TTSModel(cfg, model.params, gen=model.gen, has_real_weights=False,
+                     device=model.device)
+        return m if bits is None else quantize_model(m, bits)
+
+    gen = GenParams(temp=0.7, eos_threshold=float("inf"))
+    model.gen = q8.gen = gen
+    runs = {"int8": q8, "int4": quantize_model(model, 4),
+            "int8+fp8": variant("float8_e4m3", bits=8),
+            "int8+fp8+mulaw": variant("float8_e4m3", "mulaw", bits=8)}
+    frames_budget = _budget(model, NARROW_TEXT)
+    out = {}
+    for name, m in runs.items():
+        m.gen = gen
+        m.generate("Warm up.")
+        eng = m.engine
+        expect = _ExpectedQlinear(eng)
+        torch.cuda.synchronize()
+        fb.flow_blocks.launches = ql.qlinear.launches = 0
+        eng.frames_decoded = eng.flow_evals = 0
+        t0 = time.perf_counter()
+        audio = m.generate(NARROW_TEXT)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        expect.close()
+        frames, evals = eng.frames_decoded, eng.flow_evals
+        qn, fn_ = ql.qlinear.launches, fb.flow_blocks.launches
+        _require(frames > 0 and fn_ == evals == frames * gen.lsd_decode_steps,
+                 f"{name}: flow_blocks launches {fn_} != frames {frames} x steps")
+        _require(qn == expect.count > 0, f"{name}: qlinear launches {qn} != expected "
+                                         f"{expect.count}")
+        _require(audio.size == frames_budget * model.frame_size
+                 and bool(np.isfinite(audio).all()) and float(audio.std()) > 0,
+                 f"{name}: bad audio ({audio.size} samples)")
+        secs = audio.size / model.sample_rate
+        per_frame = expect.frame + gen.lsd_decode_steps * expect.flow
+        print(f"narrow: generate {name} (kv {eng.kv_dtype}, wire {eng.wire_dtype}): "
+              f"{frames} frames decoded, flow_blocks launches {fn_} = frames x "
+              f"{gen.lsd_decode_steps}, qlinear launches {qn} = expected ({per_frame} per frame: "
+              f"{expect.backbone} backbone + {expect.frame - expect.backbone} input/cond + "
+              f"{expect.flow} flow x {gen.lsd_decode_steps}; plus prefill and codec by the "
+              f"shape rule); {dt * 1e3:.1f} ms: ms/frame {dt * 1e3 / frames:.3f}, x-realtime "
+              f"{secs / dt:.2f}")
+        out[name] = {"ms_per_frame": dt * 1e3 / frames, "x_realtime": secs / dt,
+                     "qlinear_launches": qn, "frames": frames}
+    torch.cuda.synchronize()
+    fb.flow_blocks.launches = model.engine.frames_decoded = 0
+    t0 = time.perf_counter()
+    base_audio = model.generate(NARROW_TEXT)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    frames = model.engine.frames_decoded
+    print(f"narrow: generate bf16 (same text, same call): {frames} frames, ms/frame "
+          f"{dt * 1e3 / frames:.3f}, x-realtime {base_audio.size / model.sample_rate / dt:.2f}")
+    out["bf16"] = {"ms_per_frame": dt * 1e3 / frames}
+
+    model.gen = q8.gen = GenParams(temp=0.0, eos_threshold=float("inf"))
+    a, b = model.generate(NARROW_TEXT), q8.generate(NARROW_TEXT)
+    corr = float(np.corrcoef(a, b)[0, 1])
+    _require(a.shape == b.shape and corr > 0.9, f"int8 vs bf16 at temp 0: corr {corr}")
+    print(f"narrow: temp 0, int8 vs bf16 audio correlation {corr:.5f}, max |diff| "
+          f"{np.abs(a - b).max():.4f}")
+
+    x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    got = mulaw.encode(x.to(model.device)).cpu().numpy()
+    _require(np.array_equal(got, mulaw.encode_np(x.numpy())), "mu-law encode on the card")
+    mu = variant(transport="mulaw")
+    mu.gen = model.gen
+    c = mu.generate(NARROW_TEXT)
+    err = float(np.abs(c - a).max())
+    _require(c.shape == a.shape and err <= MULAW_STEP, f"mu-law generate vs int16: {err}")
+    print(f"narrow: mu-law encode on the card == encode_np for all 65536 int16 values; "
+          f"mu-law generate vs int16 at temp 0: max {err * 32767:.0f} int16 LSB (bound "
+          f"{MULAW_STEP * 32767:.0f}), wire {mu.engine.wire_dtype}")
+    model.gen = GenParams(temp=0.7, eos_threshold=float("inf"))
+    return out
+
+
+def _narrow_batch(q8fp8) -> dict:
+    """(g) batched_tts(16, 64) on the int8 + fp8 model: 16 requests."""
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.runtime.batcher import batched_tts
+
+    b = batched_tts(q8fp8, batch_size=16, chunk_frames=64)
+    try:
+        b.warmup()
+        texts = [BATCH_SENTENCES[i % 8] for i in range(16)]
+        eng = b.engine
+        expect = _ExpectedQlinear(eng)
+        torch.cuda.synchronize()
+        fb.flow_blocks.launches = ql.qlinear.launches = 0
+        eng.flow_evals = eng.frames_decoded = 0
+        t0 = time.perf_counter()
+        results = b.generate_batch(texts)
+        wall = time.perf_counter() - t0
+        expect.close()
+        qn, fn_ = ql.qlinear.launches, fb.flow_blocks.launches
+    finally:
+        b.stop()
+    _require(fn_ == eng.flow_evals > 0, f"batch: flow_blocks {fn_} != evals {eng.flow_evals}")
+    _require(qn == expect.count > 0, f"batch: qlinear launches {qn} != expected {expect.count}")
+    for text, audio in zip(texts, results):
+        want = _budget(q8fp8, text) * q8fp8.frame_size
+        _require(audio.size == want and bool(np.isfinite(audio).all()) and float(audio.std()) > 0,
+                 f"batch {text!r}: {audio.size} samples != {want} or bad audio")
+    secs = sum(a.size for a in results) / q8fp8.sample_rate
+    print(f"narrow: batched_tts B=16 chunk 64, int8 + fp8 e4m3: 16 requests, {secs:.2f} s audio "
+          f"in {wall * 1e3:.1f} ms = aggregate x-realtime {secs / wall:.2f}; "
+          f"{eng.frames_decoded} steps of 16 lanes ({wall * 1e3 / eng.frames_decoded:.3f} ms "
+          f"per step); flow_blocks launches {fn_} = evaluations, qlinear launches {qn} = "
+          f"expected")
+    return {"qlinear_launches": qn, "x_realtime": secs / wall}
+
+
+def _narrow_cli(model) -> None:
+    """(h) the CLI's quantize and generate --quantized as subprocesses."""
+    root = Path(__file__).resolve().parent
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    runs = [["quantize", "--device", "cuda", "-o", str(d / "m.int8.safetensors")],
+            ["generate", "--quantized", "--device", "cuda", "--eos-threshold", "inf", "--quiet",
+             "--text", NARROW_TEXT, "-o", str(d / "q.wav")]]
+    for args in runs:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "pocket_tts_tpu_torch.cli", *args],
+                             cwd=root, capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t0
+        _require(res.returncode == 0, f"cli {args[0]}: exit {res.returncode}\n{res.stderr[-3000:]}")
+        _require("device: cuda" in res.stderr, f"cli {args[0]}: no cuda device line")
+        said = [ln for ln in res.stderr.splitlines() if "SNR" in ln or "realtime" in ln]
+        print(f"narrow: cli {' '.join(args[:2])}: exit 0 in {dt:.1f} s; "
+              f"{said[-1].strip() if said else ''}")
+    _require((d / "m.int8.safetensors").stat().st_size > 0, "cli quantize wrote nothing")
+    with wave.open(str(d / "q.wav"), "rb") as f:
+        got = f.getnframes()
+    want = _budget(model, NARROW_TEXT) * model.frame_size
+    _require(got == want, f"cli generate --quantized: {got} samples != {want}")
+    tmp.cleanup()
+
+
+def phase_narrow(model, dev) -> dict:
+    """Phase 8: narrow storage at full width."""
+    from pocket_tts_tpu_torch.runtime.quantize import quantize_model
+
+    t0 = time.perf_counter()
+    out = {"kernel": _narrow_kernel(dev), "times": _narrow_times(dev)}
+    q8 = _narrow_artifact(model)
+    phase_narrow_reference(model)
+    out["generate"] = _narrow_generate(model, q8)
+    del q8
+    torch.cuda.empty_cache()
+    cfg = type(model)._apply_config_overrides(model.config, kv_dtype="float8_e4m3")
+    base = type(model)(cfg, model.params, gen=model.gen, has_real_weights=False,
+                       device=model.device)
+    out["batch"] = _narrow_batch(quantize_model(base))
+    _narrow_cli(model)
+    print(f"narrow: phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _qlinear_entry(narrow: dict) -> dict:
+    """The kernels line's qlinear entry: the main-path numbers at B = 1 on ff1
+    (int8, 4096 x 1024, bf16 x), and every timed shape cold and warm."""
+    times = narrow["times"]
+    main = times["per_shape"][(8, 1, 4096, 1024)]
+    shapes = {f"int{bits}_m{m}_{n}x{k}": {key: r[key] for key in (
+        "kernel_cold_us", "kernel_warm_us", "bound_us", "share_cold", "plain_cold_us",
+        "linear_cold_us", "linear_warm_us") + (("int8pack_cold_us", "int8pack_warm_us")
+                                              if "int8pack_cold_us" in r else ())}
+        for (bits, m, n, k), r in times["per_shape"].items()}
+    gen = narrow["generate"]
+    return {
+        "name": "qlinear", "route": "cuda", "source": "pocket_tts_tpu_torch/csrc/qlinear.cu",
+        "replaces": "pocket_tts_tpu/ops/qtensor.py:61",
+        "replaces_note": "QTensor.dequant, fused by XLA into the consuming matmul; "
+                         "no Pallas kernel",
+        "launches": gen["int8"]["qlinear_launches"],
+        "launches_int4": gen["int4"]["qlinear_launches"],
+        "launches_batch": narrow["batch"]["qlinear_launches"],
+        "max_abs_err_over_tol": narrow["kernel"]["worst_err_over_tol"],
+        "max_abs_err": narrow["kernel"]["max_abs_err"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"],
+        "library_ms": main.get("library_ms"),
+        "library_error": times["library_error"],
+        "ms_per_frame": {k: v["ms_per_frame"] for k, v in gen.items()},
+        "shapes": shapes,
+    }
+
+
 def main() -> None:
     kind = phase_environment()
     phase_build()
@@ -850,6 +1366,7 @@ def main() -> None:
     phase_reference()
     voice_launches = phase_voice(model)
     batch_launches = phase_batch(model)
+    narrow = phase_narrow(model, dev)
     per_b = {key: {str(b): kern[b][key] for b in TIMED_BATCHES}
              for key in ("device_us_cold", "device_us_warm", "bound_us", "roofline_share",
                          "graph_plain_us", "graph_plain_us_warm")}
@@ -866,7 +1383,7 @@ def main() -> None:
         "ms_b4": kern[4]["ms"], "plain_ms_b4": kern[4]["plain_ms"],
         "ms_b16": kern[16]["ms"], "plain_ms_b16": kern[16]["plain_ms"],
         **per_b,
-    }]}))
+    }, _qlinear_entry(narrow)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -1,12 +1,16 @@
-"""Command-line interface of the port: ``generate`` and ``batch`` (port of
-those subcommands of ``pocket_tts_tpu/cli.py``).
+"""Command-line interface of the port: ``generate``, ``batch`` and
+``quantize`` (port of those subcommands of ``pocket_tts_tpu/cli.py``).
 
     python -m pocket_tts_tpu_torch.cli generate --text "Hello." -o out.wav
     python -m pocket_tts_tpu_torch.cli batch --manifest lines.txt -o out_dir
+    python -m pocket_tts_tpu_torch.cli quantize -o m.int8.safetensors
 
 ``generate --stream`` writes raw s16le PCM to stdout.  ``batch`` synthesizes
 a manifest (plain lines, or JSONL ``{"text", "voice"?, "output"?}``)
-concurrently through the continuous batcher, one WAV per line.  ``--device``
+concurrently through the continuous batcher, one WAV per line.
+``--quantized`` runs either on int8 weights quantized at load; ``quantize``
+writes the int8 (or ``--bits 4``) artifact that ``TTSModel.load_quantized``
+and the JAX package read.  ``--device``
 picks the torch device (default ``cuda``; with no card visible the command
 fails unless ``--device cpu`` is given); its name is printed on stderr.
 """
@@ -33,6 +37,7 @@ def _add_gen_params(p: argparse.ArgumentParser) -> None:
     p.add_argument("--noise-clamp", type=float, default=None)
     p.add_argument("--frames-after-eos", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--quantized", action="store_true", help="int8 weight quantization")
     p.add_argument("--device", default="cuda",
                    help="torch device (default: cuda; --device cpu runs on the CPU)")
 
@@ -43,10 +48,15 @@ def _load_model(args):
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is visible; "
                            "pass --device cpu to run on the CPU")
-    return TTSModel.load_with_params(
+    model = TTSModel.load_with_params(
         args.variant, temp=args.temperature, lsd_decode_steps=args.lsd_decode_steps,
         noise_clamp=args.noise_clamp, eos_threshold=args.eos_threshold,
         seed=args.seed, device=args.device)
+    if args.quantized:
+        from pocket_tts_tpu_torch.runtime.quantize import quantize_model
+
+        model = quantize_model(model)
+    return model
 
 
 def _print_device(model) -> None:
@@ -217,6 +227,23 @@ def cmd_batch(args) -> int:
     return 1 if n_fail else 0
 
 
+def cmd_quantize(args) -> int:
+    """Quantize the full-precision checkpoint (int8, or int4 with --bits 4)
+    and write the standalone artifact; print the round-trip SNR summary."""
+    from pocket_tts_tpu_torch.runtime.quantize import quantize_model, save_quantized, snr_report
+
+    args.quantized = False  # always start from the full-precision checkpoint
+    model = _load_model(args)
+    _print_device(model)
+    qmodel = quantize_model(model, bits=args.bits)
+    snrs = snr_report(model.params, qmodel.params)
+    save_quantized(qmodel.params, args.output)
+    print(f"wrote {args.output}: {len(snrs)} int{args.bits} tensors, "
+          f"SNR dB min {min(snrs.values()):.1f} mean "
+          f"{sum(snrs.values()) / len(snrs):.1f}", file=sys.stderr)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("pocket_tts_tpu_torch",
                                 description="Pocket TTS on PyTorch/CUDA")
@@ -250,6 +277,13 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--quiet", "-q", action="store_true")
     _add_gen_params(b)
     b.set_defaults(fn=cmd_batch)
+
+    q = sub.add_parser("quantize", help="write an int8 (or int4) weight artifact")
+    q.add_argument("--output", "-o", default="model.int8.safetensors")
+    q.add_argument("--bits", type=int, choices=(4, 8), default=8,
+                   help="8 = int8; 4 = packed int4, half the artifact (~25 dB SNR)")
+    _add_gen_params(q)
+    q.set_defaults(fn=cmd_quantize)
     return p
 
 

@@ -19,23 +19,16 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+from pocket_tts_tpu_torch.kernels import build as build_mod
 from pocket_tts_tpu_torch.ops.norms import layer_norm
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "flow_blocks.cu"
-BUILD_DIR = _PKG.parent / "build" / "pocket_tts_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = build_mod.PKG / "csrc" / "flow_blocks.cu"
 
 BLOCK_KEYS = ("ada_w", "ada_b", "ln_w", "ln_b", "mlp1_w", "mlp1_b", "mlp2_w", "mlp2_b")
 MAX_DIM = 1024  # kMaxChunks * 128 in the kernel
@@ -51,37 +44,9 @@ _plans: dict = {}
 _checked: dict = {}  # id()s of validated stacked block tensors -> (tensors, device, dims)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-                       "cannot build the flow_blocks CUDA kernel")
-
-
 def build() -> Path:
-    """Compile ``csrc/flow_blocks.cu`` into a shared library named by the
-    source's hash (a changed source never reuses a stale build), with the
-    compiler's register and shared-memory report beside it (``.ptxas.txt``).
-    Raises if ``nvcc`` is missing or fails."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libflow_blocks_{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    lib_path.with_suffix(".ptxas.txt").write_text(res.stdout + res.stderr)
-    os.replace(tmp, lib_path)
-    return lib_path
+    """Compile ``csrc/flow_blocks.cu`` (see :func:`kernels.build.build`)."""
+    return build_mod.build(SOURCE, "flow_blocks")
 
 
 def _load():

@@ -14,6 +14,7 @@ import math
 import torch
 
 from pocket_tts_tpu_torch.config import Config
+from pocket_tts_tpu_torch.kernels.qlinear import linear
 from pocket_tts_tpu_torch.models import flow_mlp, transformer
 from pocket_tts_tpu_torch.ops.norms import layer_norm
 from pocket_tts_tpu_torch.ops.rope import rope_table
@@ -97,8 +98,7 @@ def step(params: dict, cfg: Config, k_cache: torch.Tensor, v_cache: torch.Tensor
     ``lsd_decode_steps`` their ceiling and ``t_emb_table`` [ceiling, B, dim];
     the flow decode is then ``flow_mlp.lsd_decode_masked``."""
     tcfg = cfg.flow_lm.transformer
-    w_in = params["input_w"]
-    x = (latent.to(w_in.dtype) @ w_in.T)[:, None, :]  # [B, 1, D]
+    x = linear(latent, params["input_w"])[:, None, :]  # [B, 1, D]
     cos, sin = rope_table(pos[:, None], tcfg.head_dim, tcfg.max_period)
     y, k_cache, v_cache = transformer.cache_forward(
         params["tf"], tcfg.num_heads, k_cache, v_cache, pos, x,
@@ -123,5 +123,4 @@ def denormalize(params: dict, latent: torch.Tensor) -> torch.Tensor:
 def speaker_project(params: dict, mimi_latent: torch.Tensor) -> torch.Tensor:
     """Mimi latents [B, T, 512] -> speaker conditioning [B, T, d_model], in
     float32 (``speaker_proj`` [d_model, 512] is kept in float32)."""
-    w = params["speaker_proj"]
-    return mimi_latent.to(w.dtype) @ w.T
+    return linear(mimi_latent, params["speaker_proj"])

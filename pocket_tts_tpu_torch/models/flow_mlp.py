@@ -6,7 +6,8 @@ port of the Pallas kernel on CUDA, its plain version on the CPU); the input
 projection, ``silu(y)``, the final AdaLN layer and the final linear stay
 outside it, as in ``flow_step_pallas``.  The two timestep embedders depend
 only on the LSD step schedule, so their sum is precomputed once as a
-``[num_steps, dim]`` table.
+``[num_steps, dim]`` table.  Every other weight may be a ``QTensor``
+(``kernels.qlinear``); the engine hands the chain its blocks dequantized.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from pocket_tts_tpu_torch.kernels.flow_blocks import flow_blocks
+from pocket_tts_tpu_torch.kernels.qlinear import linear
 from pocket_tts_tpu_torch.ops.norms import layer_norm, rms_norm_torchvar
 
 
@@ -27,9 +29,8 @@ def _timestep_embedding(p_te: dict, t: torch.Tensor, freq_size: int = 256) -> to
                       * torch.arange(half, dtype=torch.float32, device=t.device) / half)
     args = t.float()[..., None] * freqs
     emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
-    h = emb @ p_te["w1"].T + p_te["b1"]
-    h = F.silu(h)
-    h = h @ p_te["w2"].T + p_te["b2"]
+    h = F.silu(linear(emb, p_te["w1"], p_te["b1"]))
+    h = linear(h, p_te["w2"], p_te["b2"])
     return rms_norm_torchvar(h, p_te["alpha"], eps=1e-5)
 
 
@@ -55,19 +56,19 @@ def time_embedding_tables(params: dict, max_steps: int) -> torch.Tensor:
 
 def embed_condition(params: dict, cond: torch.Tensor) -> torch.Tensor:
     """cond_embed: [.., cond_dim] -> [.., dim]."""
-    return cond @ params["cond_w"].T + params["cond_b"]
+    return linear(cond, params["cond_w"], params["cond_b"])
 
 
 def flow_step(params: dict, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """One flow evaluation v = f(y, x): x [B, ldim], y [B, dim] (time + cond)."""
-    h0 = x @ params["in_w"].T + params["in_b"]
+    h0 = linear(x, params["in_w"], params["in_b"])
     sy = F.silu(y)
     h = flow_blocks(sy.contiguous(), h0.contiguous(), params["blocks"])
-    mod = sy @ params["final_ada_w"].T + params["final_ada_b"]
+    mod = linear(sy, params["final_ada_w"], params["final_ada_b"])
     shift, scale = mod.chunk(2, dim=-1)
     z = layer_norm(h, None, None, eps=1e-6)
     z = z * (1 + scale) + shift
-    return z @ params["final_w"].T + params["final_b"]
+    return linear(z, params["final_w"], params["final_b"])
 
 
 def lsd_decode(params: dict, cond_emb: torch.Tensor, t_emb_table: torch.Tensor,

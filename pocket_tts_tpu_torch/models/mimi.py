@@ -28,6 +28,7 @@ from pocket_tts_tpu_torch.ops.conv import (
     streaming_conv1d,
     streaming_conv_transpose1d,
 )
+from pocket_tts_tpu_torch.ops.qtensor import mat
 from pocket_tts_tpu_torch.ops.rope import rope_table
 
 
@@ -112,7 +113,7 @@ def encode_step(params: dict, plans: MimiPlans, state: dict, audio: torch.Tensor
 
 def quantize(params: dict, latent_bct: torch.Tensor) -> torch.Tensor:
     """1x1 conv 32 -> 512 (DummyQuantizer.output_proj)."""
-    w = params["quantizer_w"][:, :, 0]
+    w = mat(params["quantizer_w"])[:, :, 0]
     return torch.einsum("bct,dc->bdt", latent_bct.to(w.dtype), w)
 
 

@@ -4,6 +4,7 @@
 Pre-LN self-attention + exact-GELU FFN with bias-free linears; LayerScale
 (``ls1``/``ls2``) only where the parameters carry it (Mimi).  Parameters are a
 dict of tensors stacked on a leading layer axis; ``in_proj`` is ``[L, 3, E, E]``.
+A weight may be a ``QTensor``: its linears run through ``kernels.qlinear``.
 
 * ``cache_forward`` — causal over a dense KV cache (FlowLM backbone).  The
   cache is ``[L, B, S, H, D]`` and is updated in place.
@@ -17,7 +18,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from pocket_tts_tpu_torch.kernels.qlinear import linear, qlinear
 from pocket_tts_tpu_torch.ops.attention import (
+    FP8_DTYPES,
     banded_attention,
     cache_write,
     causal_cache_attention,
@@ -25,6 +28,7 @@ from pocket_tts_tpu_torch.ops.attention import (
     tail_attention,
 )
 from pocket_tts_tpu_torch.ops.norms import layer_norm
+from pocket_tts_tpu_torch.ops.qtensor import QTensor
 from pocket_tts_tpu_torch.ops.rope import apply_rope
 
 
@@ -37,7 +41,10 @@ def _qkv(p_layer: dict, x: torch.Tensor, n_heads: int, cos, sin):
     d = e // n_heads
     xn = layer_norm(x, p_layer["norm1_w"], p_layer["norm1_b"], eps=1e-5)
     w = p_layer["in_proj"]  # [3, E, E]
-    proj = torch.einsum("bte,kpe->btkp", xn.to(w.dtype), w)
+    if isinstance(w, QTensor):
+        proj = qlinear(xn, w)  # one [3E, E] product
+    else:
+        proj = torch.einsum("bte,kpe->btkp", xn.to(w.dtype), w)
     proj = proj.reshape(b, t, 3, n_heads, d)
     q, k, v = proj[:, :, 0], proj[:, :, 1], proj[:, :, 2]
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
@@ -46,15 +53,13 @@ def _qkv(p_layer: dict, x: torch.Tensor, n_heads: int, cos, sin):
 def _post_attn(p_layer: dict, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     b, t = x.shape[:2]
     attn_flat = attn.reshape(b, t, -1)
-    wo = p_layer["out_proj"]
-    update = attn_flat.to(wo.dtype) @ wo.T
+    update = linear(attn_flat, p_layer["out_proj"])
     if "ls1" in p_layer:
         update = update * p_layer["ls1"].to(update.dtype)
     x = x + update
     xn = layer_norm(x, p_layer["norm2_w"], p_layer["norm2_b"], eps=1e-5)
-    w1, w2 = p_layer["ff1"], p_layer["ff2"]
-    h = F.gelu(xn.to(w1.dtype) @ w1.T, approximate="none")
-    update = h @ w2.to(h.dtype).T
+    h = F.gelu(linear(xn, p_layer["ff1"]), approximate="none")
+    update = linear(h, p_layer["ff2"])
     if "ls2" in p_layer:
         update = update * p_layer["ls2"].to(update.dtype)
     return x + update
@@ -109,7 +114,12 @@ def batch_forward(params: dict, n_heads: int, context: int | None, x: torch.Tens
 
 def init_cache(n_layers: int, batch: int, capacity: int, n_heads: int, head_dim: int,
                dtype=torch.float32, device: torch.device | str = "cpu"):
+    """Zero caches [L, B, S, H, D]; an fp8 cache is made as zero bytes (0.0
+    in both fp8 formats), which needs no fp8 fill kernel."""
     shape = (n_layers, batch, capacity, n_heads, head_dim)
+    if dtype in FP8_DTYPES:
+        return tuple(torch.zeros(shape, dtype=torch.uint8, device=device).view(dtype)
+                     for _ in range(2))
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -120,10 +130,7 @@ def init_tail(n_layers: int, batch: int, context: int, n_heads: int, head_dim: i
 
 
 def _project(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
-    if name not in p:
-        return x
-    w = p[name]
-    return x.to(w.dtype) @ w.T
+    return linear(x, p[name]) if name in p else x
 
 
 def projected_batch_forward(p: dict, cfg, x_bct: torch.Tensor, cos, sin,

@@ -14,7 +14,12 @@ Softmax runs in float32.  Masked logits use ``-1e30``, not ``-inf``: padded
 query rows are fully masked, and ``-inf`` would turn them into NaN.
 
 Cache writes are in place: ``cache_write`` and ``prefill_write`` update the
-tensor they are given and return it.
+tensor they are given and return it.  An fp8 cache (``kv_dtype``
+float8_e4m3 / float8_e5m2) is written through a uint8 view of its bytes,
+which is bit-identical and needs no fp8 indexing kernel, and is widened to
+float32 only where it is read (``_sdpa``).  Out of range, torch saturates an
+e4m3fn cast at +-448 where XLA gives NaN; attention keys and values stay far
+inside that range.
 """
 
 from __future__ import annotations
@@ -25,24 +30,33 @@ import torch
 import torch.nn.functional as F
 
 _NEG = -1e30
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def raw_view(t: torch.Tensor) -> torch.Tensor:
+    """The bytes of an fp8 tensor as uint8 (any other tensor as it is)."""
+    return t.view(torch.uint8) if t.dtype in FP8_DTYPES else t
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """q [B,T,H,D], k/v [B,S,H,D]; mask [B,1,T,S] or [1,1,T,S] bool.
 
-    K/V stored narrower than q are widened to q's dtype; logits and the
+    K/V stored in another dtype than q are cast to q's dtype, as in the JAX
+    package, except fp8, which goes straight to float32 (the same values:
+    every fp8 value is a bf16 value; one cast fewer).  Logits and the
     probability-weighted sum accumulate in float32 (bf16 products are exact
-    in f32), probabilities are rounded to v's dtype as in the JAX package.
+    in f32); probabilities are rounded to q's dtype, never to the storage
+    dtype.
     """
-    if k.dtype != q.dtype:
+    if k.dtype != q.dtype and k.dtype not in FP8_DTYPES:
         k = k.to(q.dtype)
-    if v.dtype != q.dtype:
+    if v.dtype != q.dtype and v.dtype not in FP8_DTYPES:
         v = v.to(q.dtype)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
     logits = torch.where(mask, logits, torch.full((), _NEG, device=logits.device))
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhts,bshd->bthd", probs.to(v.dtype).float(), v.float())
+    out = torch.einsum("bhts,bshd->bthd", probs.to(q.dtype).float(), v.float())
     return out.to(q.dtype)
 
 
@@ -55,7 +69,7 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> 
     st = start.long().clamp(0, s - t)
     idx = st[:, None] + torch.arange(t, device=cache.device)[None, :]
     rows = torch.arange(b, device=cache.device)[:, None].expand(b, t)
-    cache[rows, idx] = new.to(cache.dtype)
+    raw_view(cache)[rows, idx] = raw_view(new.to(cache.dtype))
     return cache
 
 
@@ -70,7 +84,7 @@ def prefill_write(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
     idx = start.long()[:, None] + offs
     keep = (offs < t_valid.long()[:, None]) & (idx >= 0) & (idx < s)
     rows = torch.arange(b, device=cache.device)[:, None].expand(b, t)
-    cache[rows[keep], idx[keep]] = new.to(cache.dtype)[keep]
+    raw_view(cache)[rows[keep], idx[keep]] = raw_view(new.to(cache.dtype))[keep]
     return cache
 
 

@@ -5,6 +5,9 @@ Weights keep the checkpoint (torch) layouts: Conv1d ``[out, in/groups, K]``,
 ConvTranspose1d ``[in, out/groups, K]``; ``F.conv_transpose1d`` takes the
 latter directly.
 
+A weight may be a ``QTensor``: the two convolutions dequantize it with
+``mat`` (the streaming forms cast their input to its dtype, the scale's).
+
 The batch forms (``batch_conv1d``, ``batch_conv_transpose1d``) give the
 output of the streaming forms run from a fresh state over the whole sequence.
 
@@ -24,6 +27,8 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+
+from pocket_tts_tpu_torch.ops.qtensor import mat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +69,9 @@ class ConvTrSpec:
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, *,
            stride: int = 1, dilation: int = 1, groups: int = 1) -> torch.Tensor:
-    """VALID conv over [B, C, T], computed in the weight dtype."""
+    """VALID conv over [B, C, T], computed in the weight dtype (a QTensor
+    weight is dequantized first)."""
+    w = mat(w)
     y = F.conv1d(x.to(w.dtype), w, None, stride=stride, dilation=dilation, groups=groups)
     if b is not None:
         y = y + b.to(y.dtype)[None, :, None]
@@ -75,6 +82,7 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, *
                      stride: int = 1, groups: int = 1) -> torch.Tensor:
     """Transposed conv over [B, C, T] (padding 0): output length
     ``(T - 1) * stride + K``."""
+    w = mat(w)
     y = F.conv_transpose1d(x.to(w.dtype), w, None, stride=stride, groups=groups)
     if b is not None:
         y = y + b.to(y.dtype)[None, :, None]

@@ -18,6 +18,10 @@
 * Voice prompts go through the Mimi encoder and the speaker projection
   (``encode_voice``) and are prefilled as conditioning
   (``prefill_conditioning``), unpadded.
+* Narrow storage: int8 / int4 ``QTensor`` weights (scales cast to each
+  leaf's dtype, ``q`` never), an fp8 KV cache (``kv_dtype``), and the mu-law
+  wire (``transport_format="mulaw"``: encoded on the device, decoded on the
+  host).
 """
 
 from __future__ import annotations
@@ -31,7 +35,10 @@ import torch
 from pocket_tts_tpu_torch.config import Config
 from pocket_tts_tpu_torch.models import flow_lm, flow_mlp, mimi, transformer
 from pocket_tts_tpu_torch.models.mimi import MimiPlans
+from pocket_tts_tpu_torch.ops import mulaw
+from pocket_tts_tpu_torch.ops.attention import raw_view
 from pocket_tts_tpu_torch.ops.conv import pad_for_frame
+from pocket_tts_tpu_torch.ops.qtensor import QTensor
 
 logger = logging.getLogger(__name__)
 
@@ -72,6 +79,11 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _clone(t: torch.Tensor) -> torch.Tensor:
+    """A copy of a cache tensor (an fp8 one copied as its bytes)."""
+    return raw_view(t).clone().view(t.dtype)
+
+
 def _map2(dst, src, fn):
     """``fn(dst_leaf, src_leaf)`` over two trees of one structure."""
     if isinstance(dst, dict):
@@ -89,15 +101,26 @@ def place_params(params: dict, device: torch.device, dtype: torch.dtype,
     """Move params to ``device``: the backbone, input linear and text
     embedding go to ``dtype`` (bf16 on CUDA: they are the bytes streamed per
     frame), the codec to ``codec_dtype``.  The flow net, the output norm /
-    EOS head and the latent statistics stay float32.
+    EOS head and the latent statistics stay float32.  A QTensor moves its
+    ``q`` as stored and casts its scale to the leaf's dtype.  The flow
+    chain's stacked QTensor blocks are dequantized here, once, into the
+    float32 stacks ``flow_blocks`` takes (the JAX package dequantizes them
+    before every call, to the same values).
     Tensors already on ``device`` in their dtype are kept, not copied, so
     engines built from one placed dict share its tensors."""
     def cast(dt):
-        return lambda t: t.to(device=device, dtype=dt).contiguous()
+        def leaf(t):
+            if isinstance(t, QTensor):
+                return QTensor(t.q.to(device).contiguous(),
+                               t.scale.to(device=device, dtype=dt).contiguous())
+            return t.to(device=device, dtype=dt).contiguous()
+        return leaf
 
     narrow = ("tf", "input_w", "text_embed")
     fl = {k: _map(v, cast(dtype if k in narrow else torch.float32))
           for k, v in params["flow_lm"].items()}
+    fl["flow"]["blocks"] = {k: v.dequant() if isinstance(v, QTensor) else v
+                            for k, v in fl["flow"]["blocks"].items()}
     return {"flow_lm": fl, "mimi": _map(params["mimi"], cast(codec_dtype))}
 
 
@@ -121,12 +144,10 @@ class Engine:
             dt = "bfloat16" if self.device.type == "cuda" else "float32"
         self.dtype = getattr(torch, dt)
         kdt = dt if rcfg.kv_dtype == "auto" else rcfg.kv_dtype
-        if kdt not in ("bfloat16", "float32"):
-            raise NotImplementedError(f"kv_dtype={kdt!r} is not ported yet")
-        self.kv_dtype = getattr(torch, kdt)
-        if rcfg.transport_format != "int16":
-            raise NotImplementedError(
-                f"transport_format={rcfg.transport_format!r} is not ported yet")
+        # finite-only e4m3 ("fn"), as the JAX package
+        self.kv_dtype = {"float8_e4m3": torch.float8_e4m3fn,
+                         "float8_e5m2": torch.float8_e5m2}.get(kdt) or getattr(torch, kdt)
+        self.transport = rcfg.transport_format
         # The codec (decoder and voice encoder) runs in float32 on every
         # device: in bf16 its audio output keeps 8 mantissa bits (up to 64
         # int16 LSB at half scale), and the chunk grouping alone moved
@@ -176,7 +197,7 @@ class Engine:
         """Per-segment restart from a voice state: the FlowLM cache is COPIED
         from the voice snapshot (decoding writes in place and must never touch
         the shared snapshot); latent and Mimi decoder start fresh."""
-        return {"kc": voice_state["kc"].clone(), "vc": voice_state["vc"].clone(),
+        return {"kc": _clone(voice_state["kc"]), "vc": _clone(voice_state["vc"]),
                 "pos": voice_state["pos"].clone(), **self._fresh_decode_state()}
 
     # -- slot admission (continuous batching) --------------------------------
@@ -187,8 +208,8 @@ class Engine:
         write is in place and touches that lane only; on one stream it runs
         after the chunks already enqueued, which read the lane's old data."""
         lane = slice(slot, slot + 1)
-        state["kc"][:, lane].copy_(voice_state["kc"])
-        state["vc"][:, lane].copy_(voice_state["vc"])
+        for name in ("kc", "vc"):  # an fp8 cache is copied as its bytes
+            raw_view(state[name])[:, lane].copy_(raw_view(voice_state[name]))
         state["pos"][lane].copy_(voice_state["pos"])
         state["latent"][lane].copy_(self.params["flow_lm"]["bos_emb"])
         if self._fresh_mimi1 is None:
@@ -309,14 +330,23 @@ class Engine:
     # -- decode ------------------------------------------------------------
 
     def _pcm16(self, audio: torch.Tensor) -> torch.Tensor:
-        """Codec output [B, 1, T] -> int16 PCM [B, T]: clip to [-1, 1], scale
-        by 32767, truncate toward zero."""
+        """Codec output [B, 1, T] -> wire samples [B, T]: int16 PCM (clip to
+        [-1, 1], scale by 32767, truncate toward zero), companded to uint8
+        mu-law on the device when ``transport_format="mulaw"``."""
         a = audio[:, 0, :].float()
-        return (a.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+        pcm = (a.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+        return mulaw.encode(pcm) if self.transport == "mulaw" else pcm
+
+    @property
+    def wire_dtype(self) -> torch.dtype:
+        return torch.uint8 if self.transport == "mulaw" else torch.int16
 
     def wire_to_float(self, arr) -> np.ndarray:
-        """Fetched int16 samples -> float32 in [-1, 1] (host side)."""
-        return np.asarray(arr).astype(np.float32) / 32767.0
+        """Fetched wire samples -> float32 in [-1, 1] (host side)."""
+        a = np.asarray(arr)
+        if self.transport == "mulaw":
+            a = mulaw.decode(a)
+        return a.astype(np.float32) / 32767.0
 
     def decode_frames(self, state: dict, n_frames: int, gen: GenParams,
                       generator: torch.Generator, *, temps=None, eos_thresholds=None,

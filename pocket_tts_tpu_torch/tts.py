@@ -1,7 +1,8 @@
 """TTSModel — the public orchestrator (port of ``pocket_tts_tpu/tts.py``,
 single-stream synthesis on the chunk schedule).
 
-``load`` / ``load_with_params`` / ``get_voice_state*`` / ``save_voice_prompt``
+``load`` / ``load_with_params`` / ``load_quantized`` / ``get_voice_state*`` /
+``save_voice_prompt``
 / ``extend_voice_state`` / ``generate`` / ``generate_stream`` /
 ``generate_with_pauses`` / ``generate_stream_long``.  Host-side orchestration
 only: all compute is enqueued by ``runtime.Engine`` on the model's device.  A
@@ -54,12 +55,23 @@ class VoiceState:
         return {"kc": self.kc, "vc": self.vc, "pos": self.pos}
 
 
+def _check_device(device) -> None:
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"TTSModel.load: device {str(device)!r} but no CUDA device is "
+                           "visible; pass device=\"cpu\" to run on the CPU")
+
+
 class TTSModel:
+    is_quantized = False
+
     def __init__(self, cfg: Config, params: dict, *, gen: GenParams, has_real_weights: bool,
                  device: torch.device | str, seed: int = 0):
         self.config = cfg
         self.gen = gen
         self.has_real_weights = has_real_weights
+        # the unplaced float32 (or loaded quantized) params: quantize_model
+        # quantizes these, never the engine's bf16 copy
+        self.params = params
         self.engine = Engine(cfg, params, device)
         self.device = self.engine.device
         self.tokenizer = text_mod.load_tokenizer(None)
@@ -85,29 +97,86 @@ class TTSModel:
         seed: int = 0,
         voice_prompt_chunk_frames: int | None = None,
         max_seq: int | None = None,
+        transport_format: str | None = None,
+        kv_dtype: str | None = None,
         device: torch.device | str = "cuda",
     ) -> "TTSModel":
         """``device`` defaults to ``cuda``; with no card visible that raises
         RuntimeError, and the CPU runs only when asked (``device="cpu"``).
-        ``voice_prompt_chunk_frames`` overrides the chunk size of the streaming
-        voice encoder (prompts over 30 s; default 240 frames).  ``max_seq``
-        overrides the FlowLM KV-cache capacity (default 1024)."""
-        cfg = load_variant(variant)
-        if voice_prompt_chunk_frames is not None:
-            cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
-                cfg.runtime, voice_prompt_chunk_frames=voice_prompt_chunk_frames))
-        if max_seq is not None:
-            if max_seq < 256:
-                raise ValueError(f"max_seq must be >= 256, got {max_seq}")
-            cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime,
-                                                                       max_seq=max_seq))
-        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"TTSModel.load: device {str(device)!r} but no CUDA device is "
-                               "visible; pass device=\"cpu\" to run on the CPU")
+        ``voice_prompt_chunk_frames``, ``max_seq``, ``transport_format`` and
+        ``kv_dtype``: see :meth:`_apply_config_overrides`."""
+        cfg = cls._apply_config_overrides(
+            load_variant(variant), transport_format=transport_format, kv_dtype=kv_dtype,
+            voice_prompt_chunk_frames=voice_prompt_chunk_frames, max_seq=max_seq)
+        _check_device(device)
         params, real = weights_mod.load_params(cfg, variant=variant)
         gen = GenParams(temp=temp, lsd_decode_steps=lsd_decode_steps,
                         noise_clamp=noise_clamp, eos_threshold=eos_threshold)
         return cls(cfg, params, gen=gen, has_real_weights=real, device=device, seed=seed)
+
+    @staticmethod
+    def _apply_config_overrides(cfg: Config, *, transport_format=None, kv_dtype=None,
+                                voice_prompt_chunk_frames=None, max_seq=None) -> Config:
+        """Runtime-config overrides shared by the loaders.
+
+        * ``transport_format``: the device -> host wire, "int16" (exact) or
+          "mulaw" (half the fetched bytes, ~37 dB SNR).  The keyword wins over
+          ``POCKET_TTS_TRANSPORT``; the config's default otherwise.
+        * ``kv_dtype``: the FlowLM KV cache's storage dtype ("auto",
+          "bfloat16", "float32", "float8_e4m3", "float8_e5m2").  The keyword
+          wins over ``POCKET_TTS_KV_DTYPE``.
+        * ``voice_prompt_chunk_frames``: the chunk size of the streaming
+          voice encoder (prompts over 30 s; default 240 frames).
+        * ``max_seq``: the FlowLM KV-cache capacity (default 1024, at least
+          256)."""
+        rt = cfg.runtime
+        transport = transport_format or os.environ.get("POCKET_TTS_TRANSPORT")
+        if transport is not None:
+            rt = dataclasses.replace(rt, transport_format=transport)
+        kvd = kv_dtype or os.environ.get("POCKET_TTS_KV_DTYPE")
+        if kvd is not None:
+            rt = dataclasses.replace(rt, kv_dtype=kvd)
+        if voice_prompt_chunk_frames is not None:
+            rt = dataclasses.replace(rt, voice_prompt_chunk_frames=voice_prompt_chunk_frames)
+        if max_seq is not None:
+            if max_seq < 256:
+                raise ValueError(f"max_seq must be >= 256, got {max_seq}")
+            rt = dataclasses.replace(rt, max_seq=max_seq,
+                                     window_buckets=tuple(range(256, max_seq, 256)))
+        return dataclasses.replace(cfg, runtime=rt)
+
+    _GEN_KEYS = ("temp", "lsd_decode_steps", "noise_clamp", "eos_threshold")
+    _CFG_KEYS = ("transport_format", "kv_dtype", "voice_prompt_chunk_frames", "max_seq")
+
+    @classmethod
+    def _parse_loader_kwargs(cls, cfg: Config, kwargs: dict):
+        """(cfg, gen, seed, device) for the ``**kwargs`` loaders: the
+        GenParams and runtime overrides of :meth:`load_with_params`; an
+        unknown key raises TypeError."""
+        kw = dict(kwargs)
+        gen = GenParams(**{k: kw.pop(k) for k in cls._GEN_KEYS if k in kw})
+        seed = kw.pop("seed", 0)
+        device = kw.pop("device", "cuda")
+        cfg = cls._apply_config_overrides(cfg, **{k: kw.pop(k) for k in cls._CFG_KEYS if k in kw})
+        if kw:
+            raise TypeError(f"unknown load kwargs: {sorted(kw)}")
+        return cfg, gen, seed, device
+
+    @classmethod
+    def load_quantized(cls, path: str | Path, variant: str = DEFAULT_VARIANT,
+                       **kwargs) -> "TTSModel":
+        """Load a quantized artifact (``runtime.quantize.save_quantized``, of
+        this package or the JAX package; ``hf://`` URIs resolve through the
+        local Hugging Face cache).  ``kwargs``: those of
+        :meth:`load_with_params`."""
+        from pocket_tts_tpu_torch.runtime.quantize import load_quantized
+
+        cfg, gen, seed, device = cls._parse_loader_kwargs(load_variant(variant), kwargs)
+        _check_device(device)
+        params = load_quantized(weights_mod.resolve_uri(path))
+        model = cls(cfg, params, gen=gen, has_real_weights=True, device=device, seed=seed)
+        model.is_quantized = True
+        return model
 
     @property
     def sample_rate(self) -> int:

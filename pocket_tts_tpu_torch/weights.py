@@ -29,6 +29,7 @@ from pocket_tts_tpu_torch.models.mimi import MimiPlans
 logger = logging.getLogger(__name__)
 
 _ST_DTYPES = {"F32": np.float32, "F16": np.float16}
+_ST_INTS = {"I8": np.int8, "U8": np.uint8}
 _HF_RE = re.compile(r"^hf://(?P<owner>[^/]+)/(?P<repo>[^/]+)/(?P<file>.+?)(@(?P<rev>[^@]+))?$")
 
 
@@ -64,14 +65,17 @@ def resolve_uri(uri: str | Path) -> Path:
     return path
 
 
-def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
-    """safetensors file -> {name: float32 array} (see ``read_safetensors_bytes``)."""
-    return read_safetensors_bytes(Path(path).read_bytes(), str(path))
+def read_safetensors(path: str | Path, *, with_metadata: bool = False):
+    """safetensors file -> {name: array} (see ``read_safetensors_bytes``)."""
+    return read_safetensors_bytes(Path(path).read_bytes(), str(path),
+                                  with_metadata=with_metadata)
 
 
-def read_safetensors_bytes(data: bytes, name: str = "<bytes>") -> dict[str, np.ndarray]:
-    """safetensors bytes -> {name: float32 array} for F32, F16 and BF16
-    tensors (8-byte little-endian header length, JSON header, packed data)."""
+def read_safetensors_bytes(data: bytes, name: str = "<bytes>", *, with_metadata: bool = False):
+    """safetensors bytes -> {name: array} (8-byte little-endian header
+    length, JSON header, packed data): F32, F16 and BF16 tensors widened to
+    float32, I8 and U8 tensors as stored.  ``with_metadata`` returns
+    ``(tensors, metadata)``, the header's ``__metadata__`` dict (or {})."""
     (header_len,) = struct.unpack_from("<Q", data, 0)
     header = json.loads(data[8:8 + header_len])
     base = 8 + header_len
@@ -86,20 +90,30 @@ def read_safetensors_bytes(data: bytes, name: str = "<bytes>") -> dict[str, np.n
             arr = (np.frombuffer(raw, np.uint16).astype(np.uint32) << 16).view(np.float32)
         elif dtype in _ST_DTYPES:
             arr = np.frombuffer(raw, _ST_DTYPES[dtype]).astype(np.float32)
+        elif dtype in _ST_INTS:
+            arr = np.frombuffer(raw, _ST_INTS[dtype]).copy()
         else:
             raise ValueError(f"{name}: tensor {key} has unsupported dtype {dtype}")
         out[key] = arr.reshape(meta["shape"])
+    if with_metadata:
+        return out, dict(header.get("__metadata__") or {})
     return out
 
 
-def write_safetensors(tensors: dict[str, np.ndarray], path: str | Path) -> None:
-    """{name: array} -> safetensors file of F32 tensors: 8-byte little-endian
-    header length, JSON header (``dtype``, ``shape``, ``data_offsets``)
-    padded with spaces to a multiple of 8 bytes, then the packed data."""
-    header, blobs, offset = {}, [], 0
+def write_safetensors(tensors: dict[str, np.ndarray], path: str | Path,
+                      metadata: dict[str, str] | None = None) -> None:
+    """{name: array} -> safetensors file: int8 and uint8 arrays as I8 / U8,
+    every other array as F32; 8-byte little-endian header length, JSON
+    header (``dtype``, ``shape``, ``data_offsets``, and ``metadata`` as
+    ``__metadata__``) padded with spaces to a multiple of 8 bytes, then the
+    packed data."""
+    header: dict = {"__metadata__": dict(metadata)} if metadata else {}
+    blobs, offset = [], 0
     for key, arr in tensors.items():
-        raw = np.ascontiguousarray(arr, dtype="<f4").tobytes()
-        header[key] = {"dtype": "F32", "shape": list(np.shape(arr)),
+        kind = {np.dtype(np.int8): ("I8", "i1"), np.dtype(np.uint8): ("U8", "u1")}.get(
+            np.asarray(arr).dtype, ("F32", "<f4"))
+        raw = np.ascontiguousarray(arr, dtype=kind[1]).tobytes()
+        header[key] = {"dtype": kind[0], "shape": list(np.shape(arr)),
                        "data_offsets": [offset, offset + len(raw)]}
         blobs.append(raw)
         offset += len(raw)

@@ -11,8 +11,8 @@ and ``admit_prefill_slot`` (other lanes bit-identical).
 Batcher cases, ports of tests/test_batcher.py: every batched request equals
 the port's own single stream and JAX ``TTSModel.generate_with_pauses``
 within 1e-4 in float audio.  Left out: the window-bucket case
-(test_batcher.py:125; attention windows are not ported) and the quantized
-case (:382; int8 weights are not ported yet).  The loop's policy,
+(test_batcher.py:125; attention windows are not ported).  The quantized case
+(:382) is in tests/test_torch_quantize.py.  The loop's policy,
 preemption, cancellation and ``generate_batch`` cases are in
 tests/test_torch_batcher_loop.py.
 """

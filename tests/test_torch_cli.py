@@ -330,3 +330,74 @@ def test_load_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     for call in (lambda: TTSModel.load(), lambda: TTSModel.load_with_params(device="cuda:0")):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
+
+
+# -- narrow storage: quantize and --quantized ----------------------------------
+
+
+@pytest.fixture
+def small_variant(monkeypatch):
+    """``load_variant`` -> the small config, so the real loaders (random
+    weights from seed 0) run at test size."""
+    from pocket_tts_tpu_torch import tts
+
+    monkeypatch.setattr(tts, "load_variant", lambda variant: PCFG)
+    monkeypatch.delenv("POCKET_TTS_WEIGHTS", raising=False)
+    return PCFG
+
+
+@pytest.mark.parametrize("bits", ["8", "4"])
+def test_quantize_writes_an_artifact_jax_reads(small_variant, tmp_path, capsys, bits):
+    """``quantize -o`` on the CPU writes the JAX package's artifact format:
+    its ``load_quantized`` reads back exactly what its own ``quantize_params``
+    makes from the same weights."""
+    import jax.numpy as jnp
+
+    from pocket_tts_tpu import weights as jweights
+    from pocket_tts_tpu.models.mimi import MimiPlans
+    from pocket_tts_tpu.ops.qtensor import QTensor
+    from pocket_tts_tpu.runtime import quantize as jquant
+
+    out = tmp_path / f"m.int{bits}.safetensors"
+    assert cli.main(["quantize", "-o", str(out), "--bits", bits, "--device", "cpu"]) == 0
+    err = capsys.readouterr().err
+    assert "device: cpu" in err and f"int{bits} tensors, SNR dB min" in err
+    sd = tweights.random_state_dict(PCFG, 0)
+    want = jquant.quantize_params(
+        jweights.convert_tts_state_dict(sd, CFG, MimiPlans(CFG.mimi)), int(bits))
+    got = dict(jquant._flatten_paths(jquant.load_quantized(out)))
+    want = dict(jquant._flatten_paths(want))
+    assert sorted(got) == sorted(want)
+    assert sum(isinstance(v, QTensor) for v in got.values()) > 5
+    for path, w in want.items():
+        g = got[path]
+        if isinstance(w, QTensor):
+            np.testing.assert_array_equal(np.asarray(g.q), np.asarray(w.q), err_msg=path)
+            np.testing.assert_array_equal(np.asarray(g.scale), np.asarray(w.scale), err_msg=path)
+        else:
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w, jnp.float32), err_msg=path)
+
+
+def test_generate_quantized_on_cpu(small_variant, tmp_path, capsys):
+    """``generate --quantized --device cpu`` runs the int8 clone: the WAV
+    equals ``quantize_model(model).generate_with_pauses`` to the int16 LSB."""
+    from pocket_tts_tpu_torch.runtime.quantize import quantize_model
+
+    out = tmp_path / "q.wav"
+    text = "Quantized command line."
+    assert cli.main(["generate", "--text", text, "-o", str(out), "--quiet", "--quantized",
+                     "--temperature", "0", "--device", "cpu"]) == 0
+    assert "device: cpu" in capsys.readouterr().err
+    qmodel = quantize_model(TTSModel.load_with_params(temp=0.0, device="cpu"))
+    want = qmodel.generate_with_pauses(text)
+    got, sr = audio_io.read_wav(out)
+    assert sr == 24000 and got.size == want.size > 0
+    assert np.abs(got.reshape(-1) - want).max() <= 1.5 / 32767
+
+
+def test_quantized_flag_reaches_the_loader(monkeypatch):
+    args = cli.build_parser().parse_args(["batch", "--manifest", "m", "--quantized"])
+    assert args.quantized
+    assert not cli.build_parser().parse_args(["generate", "--text", "x"]).quantized
+    args = cli.build_parser().parse_args(["quantize"])
+    assert (args.output, args.bits, args.device) == ("model.int8.safetensors", 8, "cuda")

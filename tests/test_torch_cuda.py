@@ -187,3 +187,117 @@ def test_batcher_matches_single_stream_on_cuda(cuda_device):
     for got, want in zip(results, singles):
         assert got.shape == want.shape and got.size > 0
         assert abs(got - want).max() <= 1e-4
+
+
+# -- qlinear: the weight-only int8 / int4 GEMV ---------------------------------
+
+# (M, N, K) of the decode frame at B = 1, 4, 16, 32: in_proj as [3E, E], ff1,
+# ff2, and the flow net's final linear; then an odd shape
+QLINEAR_SHAPES = [(m, n, k) for m in (1, 4, 16, 32)
+                  for n, k in ((3072, 1024), (4096, 1024), (1024, 4096), (32, 512))]
+QLINEAR_SHAPES += [(3, 1000, 1002), (2, 1024, 32)]
+
+
+def qlinear_tolerance(dtype, ref: torch.Tensor) -> float:
+    """bf16: two bf16 ulps of max|y| (2^(floor(log2 max|y|) - 6)): each side
+    rounds its output to bf16 once, and the plain version also rounds each
+    dequantized weight to bf16 before its product (and sums in cuBLAS's
+    order) where the kernel sums q * x in f32 and scales once.  f32:
+    1e-5 max(1, max|y|), sums in another order."""
+    import math
+
+    top = ref.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        return 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 6)
+    return 1e-5 * max(1.0, top)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,n,k", QLINEAR_SHAPES)
+def test_qlinear_kernel_matches_plain_on_cuda(cuda_device, m, n, k, dtype, bits):
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.ops.qtensor import quantize_array
+
+    g = torch.Generator().manual_seed(m * n + k + bits)
+    w = quantize_array(torch.randn(n, k, generator=g) * k ** -0.5, bits=bits)
+    w = w.to(cuda_device).to(dtype)
+    x = torch.randn(m, k, generator=g).to(cuda_device, dtype)
+    b = (torch.randn(n, generator=g) * 0.1).to(cuda_device, dtype)
+    launches = ql.qlinear.launches
+    got = ql.qlinear(x, w, b)
+    torch.cuda.synchronize()
+    assert ql.qlinear.launches == launches + 1 and got.dtype == dtype
+    ref = ql.qlinear_reference(x, w, b)
+    assert (got.float() - ref.float()).abs().max().item() <= qlinear_tolerance(dtype, ref)
+
+
+def test_qlinear_stacked_in_proj_and_shape_rule_on_cuda(cuda_device):
+    """A stacked [3, E, E] in_proj view of one layer is one launch; more than
+    MAX_ROWS rows of x go through mat() and one matmul, counted apart."""
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.ops.qtensor import quantize_array
+
+    g = torch.Generator().manual_seed(5)
+    stack = quantize_array(torch.randn(2, 3, 256, 256, generator=g) * 0.06, channel_axes=3)
+    w = stack.to(cuda_device).to(torch.bfloat16)[1]
+    x = torch.randn(1, 1, 256, generator=g).to(cuda_device, torch.bfloat16)
+    launches, large = ql.qlinear.launches, ql.qlinear.large_m
+    got = ql.qlinear(x, w)
+    assert got.shape == (1, 1, 768) and ql.qlinear.launches == launches + 1
+    ref = ql.qlinear_reference(x, w)
+    assert (got.float() - ref.float()).abs().max().item() <= qlinear_tolerance(torch.bfloat16, ref)
+    big = torch.randn(40, 256, generator=g).to(cuda_device, torch.bfloat16)
+    assert torch.equal(ql.qlinear(big, w), ql.qlinear_reference(big, w))
+    assert ql.qlinear.launches == launches + 1 and ql.qlinear.large_m == large + 1
+
+
+def test_qlinear_raises_on_cuda_input_it_cannot_take(cuda_device):
+    """On CUDA the wrapper launches the kernel or raises: never the plain path."""
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.ops.qtensor import QTensor, quantize_array
+
+    w = quantize_array(torch.randn(64, 128)).to(cuda_device)
+    x = torch.randn(1, 128, device=cuda_device)
+    launches = ql.qlinear.launches
+    with pytest.raises(TypeError, match="scale dtype"):
+        ql.qlinear(x, w.to(torch.float16))
+    with pytest.raises(TypeError, match="bias"):
+        ql.qlinear(x, w, torch.zeros(64, device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="q on cpu"):
+        ql.qlinear(x, QTensor(w.q.cpu(), w.scale))
+    with pytest.raises(ValueError, match="at most 4096"):
+        ql.qlinear(torch.randn(1, 8192, device=cuda_device),
+                   quantize_array(torch.randn(8, 8192)).to(cuda_device))
+    assert ql.qlinear.launches == launches
+
+
+def test_quantized_frame_launches_qlinear_on_cuda(cuda_device):
+    """Every quantized linear of a B = 1 frame is a qlinear launch: the
+    backbone's in_proj, ff1 and ff2 per layer, the input linear, cond_w, and
+    in_w, final_ada_w and final_w per flow evaluation."""
+    from pocket_tts_tpu_torch import config as c
+    from pocket_tts_tpu_torch import weights
+    import numpy as np
+
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.ops.qtensor import QTensor
+    from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams
+    from pocket_tts_tpu_torch.runtime.quantize import quantize_params
+
+    cfg = _small_config(c.RuntimeConfig(kv_dtype="float8_e4m3", transport_format="mulaw"))
+    params = quantize_params(weights.from_state_dict(weights.random_state_dict(cfg, 3), cfg))
+    eng = Engine(cfg, params, cuda_device)
+    st = eng.prefill_tokens(eng.new_state(), np.array([[3, 1, 4, 1, 5]], np.int32), 5)
+    launches = ql.qlinear.launches
+    _, audio, _ = eng.decode_frames(st, 4, GenParams(temp=0.0, lsd_decode_steps=2),
+                                    torch.Generator(device=cuda_device))
+    torch.cuda.synchronize()
+    assert audio.dtype == torch.uint8 and audio.shape == (1, 4 * 1920)
+    fl = params["flow_lm"]
+    backbone = sum(w.q.shape[0] for w in fl["tf"].values() if isinstance(w, QTensor))
+    frame = backbone + sum(isinstance(fl[k], QTensor) for k in ("input_w",))
+    frame += isinstance(fl["flow"]["cond_w"], QTensor)
+    flow = sum(isinstance(fl["flow"][k], QTensor) for k in ("in_w", "final_ada_w", "final_w"))
+    assert backbone == 3 * cfg.flow_lm.transformer.num_layers and flow >= 1
+    assert ql.qlinear.launches - launches == 4 * (frame + 2 * flow)
