@@ -50,8 +50,12 @@ result line):
    with a voice WAV) and ``generate --device cuda -o``.
 8. Narrow: int8 / int4 weights, the fp8 KV cache and the mu-law wire at full
    width.  (a) ``qlinear`` against its plain version at M in {1, 4, 16, 32}
-   x the frame's (N, K), int8 and int4, bf16 and f32 x, an odd shape and the
-   stacked in_proj view, each within its stated tolerance.  (b) Cold and warm
+   x the frame's (N, K), int8 and int4, bf16 x (tensor cores) and f32 x, an
+   odd shape and the stacked in_proj view, each within its stated
+   tolerance; each shape's ``launch_plan``; on the tensor-core route a row
+   of x alone against the same row inside M=16 and M=32, bit for bit, at the
+   three backbone shapes, int8 and int4; one call replayed from a CUDA graph
+   against eager.  (b) Cold and warm
    device us of ``qlinear`` (bf16 x) from CUDA graphs as in phase 3, the
    bound and share, the plain version, ``F.linear`` on the unquantized bf16
    weight and ``torch._weight_int8pack_mm`` as yardsticks, and the wrapper's
@@ -61,7 +65,12 @@ result line):
    int4, int8 + fp8 e4m3 KV and int8 + fp8 + mu-law, with the flow_blocks
    and qlinear launch counts checked (qlinear against the count the shape
    rule predicts for every call the engine made), ms/frame and x-realtime;
-   int8 against bf16 at temp 0.  (f) mu-law encode on the card over every
+   int8 against bf16 at temp 0.  (e2) int8 + fp8 e4m3 with a cloned voice
+   and ``continuation_frames=8``: the voice state's bytes unchanged, two
+   temp-0 runs bit-identical, launch counts as predicted; and in f32 a
+   conditioning prefill plus a continuation prefill into a copy of the
+   voice, 4 frames, card vs CPU within ``REF_TOL_LSB``.  (f) mu-law encode
+   on the card over every
    int16 value, and mu-law ``generate`` against int16 within one step.  (g)
    ``batched_tts(16, 64)`` on int8 + fp8: 16 requests, launch counts
    checked.  (h) ``quantize --device cuda`` and ``generate --quantized
@@ -160,15 +169,15 @@ def phase_build():
     print(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.2f} s "
           f"(one nvcc per source, in parallel)")
     # nvcc -Xptxas -v, one line per kernel instantiation: flow_chain_kernel<group,
-    # float4 chunks per lane>, qlinear_kernel<type, rows of x, packed int4>
+    # float4 chunks per lane>, qlinear_mma_kernel<8-row tiles of x, packed int4>,
+    # qlinear_f32_kernel<rows of x, packed int4>
     for path in paths:
         entry, spill = "?", ""
         for line in path.with_suffix(".ptxas.txt").read_text().splitlines():
             if "Compiling entry function" in line:
                 m = (re.search(r"\d([a-z_]+_kernel)ILi(\d+)ELi(\d+)E", line)
-                     or re.search(r"\d(qlinear_kernel)I(f|13__nv_bfloat16)Li(\d+)ELb(\d)E", line))
+                     or re.search(r"\d(qlinear_(?:mma|f32)_kernel)ILi(\d+)ELb(\d)E", line))
                 entry = f"{m[1]}<{', '.join(m.groups()[1:])}>" if m else line.strip()
-                entry = entry.replace("13__nv_bfloat16", "bf16").replace("<f,", "<f32,")
             elif "spill" in line:
                 spill = line.strip()
             elif "registers" in line:
@@ -942,6 +951,41 @@ def _narrow_kernel(dev) -> dict:
           "max|y|, "
           "f32 1e-5 max(1, max|y|)): " + "; ".join(lines)
           + f"; stacked in_proj [6,3,1024,1024][2] as [3072, 1024] bf16 {err:.2e}")
+    for n, k in QLINEAR_NK + (QLINEAR_ODD[1:],):
+        for packed in (False, True):
+            p = ql.launch_plan(1, n, k, packed)
+            print(f"narrow: qlinear plan {n}x{k} int{4 if packed else 8}: {p.rows} rows x "
+                  f"{p.span} bytes per CTA ({p.tiles_per_cta} tiles, K split {p.k_warps} warps x "
+                  f"cluster {p.cluster}, {p.chunks_per_warp} chunks a warp), grid {p.grid}, "
+                  f"smem {p.smem} B at M <= 8")
+
+    # a lane alone against the same lane inside M=16 and M=32, bit for bit
+    for n, k in QLINEAR_NK[:3]:
+        for bits in (8, 4):
+            _, w, x = _qlinear_case(g, 32, n, k, bits, torch.bfloat16, dev)
+            y16, y32 = ql.qlinear(x[:16], w), ql.qlinear(x, w)
+            for r in (0, 7, 15):
+                alone = ql.qlinear(x[r:r + 1].contiguous(), w)
+                _require(torch.equal(alone[0], y16[r]) and torch.equal(alone[0], y32[r]),
+                         f"qlinear {n}x{k} int{bits}: row {r} alone differs from inside M=16/32")
+            _require(torch.equal(ql.qlinear(x[:16], w), y16), f"qlinear {n}x{k}: run to run")
+    print("narrow: qlinear bf16 rows 0, 7, 15 alone (M=1) == the same rows inside M=16 and "
+          "M=32, bit for bit, at in_proj, ff1, ff2, int8 and int4; M=16 bit-identical run to run")
+
+    # one call replayed from a CUDA graph (a cluster launch) against eager
+    for bits in (8, 4):
+        _, w, x = _qlinear_case(g, 16, 1024, 4096, bits, torch.bfloat16, dev)
+        eager = ql.qlinear(x, w)
+        holder = {}
+        graph = _capture(lambda: holder.__setitem__("out", ql.qlinear(x, w)))
+        holder["out"].zero_()
+        launches = ql.qlinear.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        _require(ql.qlinear.launches == launches, "a qlinear graph replay went through the wrapper")
+        _require(torch.equal(holder["out"], eager), f"qlinear int{bits}: graph replay != eager")
+    print("narrow: qlinear bf16 M=16 1024x4096 int8 and int4 captured in a CUDA graph replays "
+          "to the eager result bit for bit")
     return {"worst_err_over_tol": worst, "max_abs_err": max(worst_abs, err)}
 
 
@@ -949,7 +993,8 @@ def _narrow_times(dev) -> dict:
     """(b) cold and warm device us of qlinear (bf16 x, the backbone's dtype)
     at every shape, int8 and int4, with the plain version, F.linear on the
     unquantized bf16 weight and torch._weight_int8pack_mm as yardsticks, in
-    turns; the bound; the wrapper's median ms."""
+    turns (each palindrome of turns twice: a cold time is the difference of
+    two ~90 us graphs); the bound; the wrapper's median ms."""
     import torch.nn.functional as F
 
     from pocket_tts_tpu_torch.kernels import qlinear as ql
@@ -981,8 +1026,8 @@ def _narrow_times(dev) -> dict:
                     graphs[name + "_cold"] = _capture(fn, flush=flush)
                     graphs[name + "_warm"] = _capture(fn, reps=20)
                 names = list(fns)
-                order = (["flush"] + [f"{a}_cold" for a in names + names[::-1]] + ["flush"]
-                         + [f"{a}_warm" for a in names + names[::-1]])
+                order = 2 * (["flush"] + [f"{a}_cold" for a in names + names[::-1]] + ["flush"]
+                             + [f"{a}_warm" for a in names + names[::-1]])
                 turns = {key: [] for key in graphs}
                 for key in order:
                     turns[key].append(_replay_us(graphs[key]))
@@ -1098,9 +1143,11 @@ class _ExpectedQlinear:
     """The qlinear launches the shape rule predicts for what an engine runs
     while it is watched: each frame's backbone, input and cond linears (B
     rows), each flow evaluation's in_w, final_ada_w and final_w, each codec
-    transformer call of 16 * K * B rows and each prefill of B * bucket rows
-    when its rows are at most MAX_ROWS.  Counts the engine's calls by
-    wrapping its methods (on the instance, until ``close``)."""
+    transformer call of 16 * K * B rows, each text prefill of B * bucket
+    rows, each conditioning prefill of B * T rows and each voice encode of
+    16 * frames * B rows (the codec's transformers run 16 positions per
+    frame) when its rows are at most MAX_ROWS.  Counts the engine's calls by wrapping its
+    methods (on the instance, until ``close``)."""
 
     def __init__(self, eng):
         from pocket_tts_tpu_torch.kernels import qlinear as ql
@@ -1117,13 +1164,15 @@ class _ExpectedQlinear:
                                          for w in (fl["input_w"], fl["flow"]["cond_w"]))
         self.flow = sum(isinstance(fl["flow"][key], QTensor)
                         for key in ("in_w", "final_ada_w", "final_w"))
-        self.codec = layers(mm["dec_tf"]["layers"]) + sum(
-            isinstance(w, QTensor) for key, w in mm["dec_tf"].items() if key != "layers")
+        self.codec, self.encoder = (layers(mm[tf]["layers"]) + sum(
+            isinstance(w, QTensor) for key, w in mm[tf].items() if key != "layers")
+            for tf in ("dec_tf", "enc_tf"))
         self.count = 0
         self.eng = eng
         buckets = eng._rcfg.text_buckets
-        orig = {name: getattr(eng, name) for name in
-                ("decode_frames", "prefill_tokens", "admit_prefill_slot")}
+        self.names = ("decode_frames", "prefill_tokens", "admit_prefill_slot",
+                      "prefill_conditioning", "_encode")
+        orig = {name: getattr(eng, name) for name in self.names}
 
         def decode_frames(state, k, *a, **kw):
             b, evals = state["pos"].shape[0], eng.flow_evals
@@ -1144,12 +1193,24 @@ class _ExpectedQlinear:
             self.count += self.backbone if row.shape[1] <= self.max_rows else 0
             return orig["admit_prefill_slot"](state, slot, vs, row, n)
 
+        def prefill_conditioning(state, cond, n_valid):
+            rows = cond.shape[0] * cond.shape[1]
+            self.count += self.backbone if rows <= self.max_rows else 0
+            return orig["prefill_conditioning"](state, cond, n_valid)
+
+        def _encode(audio):
+            frames = -(-audio.shape[-1] // eng.frame_size)
+            rows = audio.shape[0] * 16 * frames
+            self.count += self.encoder if rows <= self.max_rows else 0
+            return orig["_encode"](audio)
+
         for name, fn in (("decode_frames", decode_frames), ("prefill_tokens", prefill_tokens),
-                         ("admit_prefill_slot", admit_prefill_slot)):
+                         ("admit_prefill_slot", admit_prefill_slot),
+                         ("prefill_conditioning", prefill_conditioning), ("_encode", _encode)):
             setattr(eng, name, fn)
 
     def close(self):
-        for name in ("decode_frames", "prefill_tokens", "admit_prefill_slot"):
+        for name in self.names:
             delattr(self.eng, name)
 
 
@@ -1244,6 +1305,86 @@ def _narrow_generate(model, q8) -> dict:
     return out
 
 
+def _narrow_voice(model, q8fp8) -> dict:
+    """(e2) int8 + fp8 e4m3 with a cloned voice and continuation: each later
+    segment prefills its tail into a copy of the voice state
+    (``_prefill_voice(base=)``, copied as its bytes).  The voice's bytes are
+    unchanged after the run, two temp-0 runs give the same audio bit for
+    bit, the launch counts are what the shape rule predicts; then a few
+    frames of the same int8 + fp8 model in float32 on the card against the
+    CPU, after a conditioning prefill and a continuation prefill into a copy
+    of the voice."""
+    from pocket_tts_tpu_torch import TTSModel, text
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.ops.attention import raw_view
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+    from pocket_tts_tpu_torch.runtime.quantize import quantize_params
+
+    sr = model.sample_rate
+    wav = _synthetic_voice(3.0, sr, seed=6)[0]
+    saved, q8fp8.gen = q8fp8.gen, GenParams(temp=0.0, eos_threshold=float("inf"))
+    eng = q8fp8.engine
+    vs = q8fp8.get_voice_state_from_audio(wav)
+    _require(vs.kc.dtype == torch.float8_e4m3fn, f"voice cache {vs.kc.dtype}")
+    before = {name: raw_view(t).clone() for name, t in vs.as_dict().items()}
+    runs = []
+    for _ in range(2):
+        expect = _ExpectedQlinear(eng)
+        torch.cuda.synchronize()
+        fb.flow_blocks.launches = ql.qlinear.launches = 0
+        eng.frames_decoded = eng.flow_evals = 0
+        audio, dt = _timed(lambda: q8fp8.generate_with_pauses(PAUSE_TEXT, vs,
+                                                              continuation_frames=8))
+        expect.close()
+        qn, fn_, frames = ql.qlinear.launches, fb.flow_blocks.launches, eng.frames_decoded
+        _require(frames > 0 and fn_ == eng.flow_evals == frames * q8fp8.gen.lsd_decode_steps,
+                 f"fp8 voice: flow_blocks launches {fn_} != frames {frames} x steps")
+        _require(qn == expect.count > 0, f"fp8 voice: qlinear launches {qn} != {expect.count}")
+        _require(bool(np.isfinite(audio).all()) and float(audio.std()) > 0, "fp8 voice: audio")
+        runs.append((audio, qn, fn_, frames, dt))
+    q8fp8.gen = saved
+    _require(np.array_equal(runs[0][0], runs[1][0]), "fp8 voice: temp-0 runs differ")
+    for name, t in vs.as_dict().items():
+        _require(torch.equal(raw_view(t), before[name]), f"fp8 voice: voice {name} was written")
+    audio, qn, fn_, frames, dt = runs[1]
+    print(f"narrow: int8 + fp8 e4m3, cloned 3 s voice, generate_with_pauses(continuation_frames="
+          f"8) at temp 0: {audio.size} samples, {frames} frames in {dt:.1f} ms; two runs "
+          f"bit-identical; voice state bytes unchanged; flow_blocks launches {fn_} = frames x "
+          f"steps, qlinear launches {qn} = expected")
+
+    # float32 compute, int8 weights, fp8 cache: card vs CPU on the same inputs
+    cfg = TTSModel._apply_config_overrides(model.config, kv_dtype="float8_e4m3")
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime,
+                                                               compute_dtype="float32"))
+    qparams = quantize_params(model.params, 8)
+    prepared, _ = text.prepare_text_prompt("Hello, world.")
+    gen = GenParams(temp=0.0, eos_threshold=float("inf"))
+    outs = []
+    cond = None
+    for device in ("cpu", "cuda"):
+        m32 = TTSModel(cfg, qparams, gen=gen, has_real_weights=False, device=device)
+        if cond is None:  # one conditioning for both sides (the CPU's)
+            cond, n = m32.engine.encode_voice(_synthetic_voice(2.0, sr, seed=7)[0])
+        vs32 = m32._prefill_voice(cond[:, :20].to(device), 20)
+        snap = {name: raw_view(t).clone() for name, t in vs32.as_dict().items()}
+        ext = m32._prefill_voice(cond[:, 20:n].to(device), n - 20, base=vs32)
+        _require(all(torch.equal(raw_view(t), snap[name]) for name, t in vs32.as_dict().items()),
+                 f"{device}: the continuation prefill wrote the voice state")
+        e = m32.engine
+        tokens, nt = text.tokens_array(m32.tokenizer, prepared)
+        state = e.prefill_tokens(e.reset_for_segment(ext.as_dict()), tokens, nt)
+        _, pcm, _ = e.decode_frames(state, 4, gen, torch.Generator(device=device))
+        outs.append(pcm.cpu().numpy().astype(np.int64))
+    lsb = int(np.abs(outs[0] - outs[1]).max())
+    _require(outs[0].shape == outs[1].shape == (1, 4 * cfg.mimi.frame_size), "shape")
+    _require(lsb <= REF_TOL_LSB, f"int8 + fp8 + voice f32 card vs CPU: {lsb} int16 LSB")
+    print(f"narrow: int8 + fp8 e4m3 in f32, voice of 20 + {n - 20} conditioning frames (the "
+          f"second into a copy), 4 frames: card vs CPU max {lsb} int16 LSB (bound "
+          f"{REF_TOL_LSB}), audio std {outs[1].std():.1f} LSB")
+    return {"qlinear_launches": qn, "lsb_card_vs_cpu": lsb}
+
+
 def _narrow_batch(q8fp8) -> dict:
     """(g) batched_tts(16, 64) on the int8 + fp8 model: 16 requests."""
     from pocket_tts_tpu_torch.kernels import flow_blocks as fb
@@ -1321,7 +1462,9 @@ def phase_narrow(model, dev) -> dict:
     cfg = type(model)._apply_config_overrides(model.config, kv_dtype="float8_e4m3")
     base = type(model)(cfg, model.params, gen=model.gen, has_real_weights=False,
                        device=model.device)
-    out["batch"] = _narrow_batch(quantize_model(base))
+    q8fp8 = quantize_model(base)
+    out["voice"] = _narrow_voice(model, q8fp8)
+    out["batch"] = _narrow_batch(q8fp8)
     _narrow_cli(model)
     print(f"narrow: phase took {time.perf_counter() - t0:.1f} s")
     return out
@@ -1346,6 +1489,7 @@ def _qlinear_entry(narrow: dict) -> dict:
         "launches": gen["int8"]["qlinear_launches"],
         "launches_int4": gen["int4"]["qlinear_launches"],
         "launches_batch": narrow["batch"]["qlinear_launches"],
+        "launches_fp8_voice": narrow["voice"]["qlinear_launches"],
         "max_abs_err_over_tol": narrow["kernel"]["worst_err_over_tol"],
         "max_abs_err": narrow["kernel"]["max_abs_err"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],

@@ -1,14 +1,13 @@
-// Weight-only int8 / int4 matrix-vector product for small batches, hand-written
-// for Hopper (sm_90a).
+// Weight-only int8 / int4 matrix products for small batches, hand-written for
+// Hopper (sm_90a).
 //
 //   y[m, n] = scale[n] * sum_k x[m, k] * q[n, k]  (+ bias[n])
 //
 // q is [N, row_bytes]: int8 (row_bytes = K), or uint8 split-half int4
 // (row_bytes = K / 2: byte j of a row holds element j in its low nibble and
 // element j + K / 2 in its high nibble, each offset by 8).  x is [M, K]
-// contiguous, M <= 32; x, scale, bias and y share one type T (float or
-// __nv_bfloat16); the sum runs in float32 and the scale is applied once per
-// output, after it.
+// contiguous, M <= 32; x, scale, bias and y share one type; the sum runs in
+// float32 and the scale is applied once per output, after it.
 //
 // Replaces: XLA's fusion of `QTensor.dequant` into the consuming matmul
 // (pocket_tts_tpu/ops/qtensor.py:61-93); no Pallas kernel.  Eager PyTorch has
@@ -17,51 +16,80 @@
 //
 // What bounds it on the card: bytes.  At M = 1 the FlowLM backbone's ff1
 // (4096 x 1024, int8) is 4.2 MB, 1.25 us at 3.35 TB/s, against 8.4 MFLOP of
-// arithmetic; one decode frame's quantized backbone is 69.2 MB in int8 and
-// 34.6 MB in int4.
+// arithmetic (268 MFLOP at M = 32: still 0.27 us on the bf16 tensor cores).
 //
-// What the design does about it:
-//   * One warp per output row.  Each lane owns 16 consecutive bytes of the row
-//     in each 512-byte chunk and issues all of its 16-byte loads (up to 8
-//     chunks: rows of at most 4096 bytes) before it computes, so a row's whole
-//     read is in flight at once; a grid of N / 8 blocks covers every row once.
-//   * x is staged in shared memory as float32, one 512-byte chunk of K (both
-//     halves of it in int4) for all M rows at a time, permuted so that the
-//     lanes' 128-bit reads of one group of 4 weights touch 512 consecutive bytes
-//     (no bank conflicts).  Weights are converted in registers (int8, or two
-//     nibbles minus 8) and each is applied to the M rows from registers.
-//   * One butterfly reduction per row of x; lane m writes y[m, n].
-//   * Rows whose length or base address is not a multiple of 16 bytes (odd
-//     shapes) are read byte by byte in the same lane layout.
-// There is no wgmma: at M = 16 the shared-memory reads of the staged x (4
-// bytes per multiply-add) and not the weight bytes set the pace.
+// Two routes, chosen by the type of x:
+//
+// bf16 x (the backbone: every decode frame's 18 backbone products, the input
+// linear) -- `qlinear_mma_kernel`, on the tensor cores.
+//   * Operands swapped: y^T = W x^T, so the weight rows are the MMA's M (16)
+//     and the <= 32 rows of x its N, in tiles of 8.  The instruction is
+//     `mma.sync.m16n8k16` bf16 -> f32 with A from registers: `wgmma` wants a
+//     64-row warpgroup tile and 8-column steps too, and its register-A form
+//     needs the same in-register conversion; at these sizes the product is
+//     ~1% of the time and the weight stream is the rest, so the simpler
+//     per-warp instruction loses nothing and keeps every warp independent.
+//   * K is permuted inside each 64-byte chunk of a row so that a lane's one
+//     16-byte load of weight row r IS its A fragments for four MMAs: lane
+//     (g = lane / 4, t = lane % 4) loads bytes [16 t, 16 t + 16) of rows g
+//     and g + 8; byte 16 t + 4 s + e feeds MMA s at k slot 2 t + e (e < 2)
+//     or 2 t + 8 + (e - 2).  Its B fragments for the same four MMAs are then
+//     x[m, 16 t .. 16 t + 15] of the chunk, natural order: two 16-byte shared
+//     loads (the same count ldmatrix.x4 would take, without permuting x).
+//     Int4: the low nibbles of the 16 bytes are the A fragments against the
+//     first half of x, the high nibbles against the second half (K / 2 on).
+//   * Conversion in registers, exact (|q| <= 127): int8 through the f32
+//     magic number 2^23 (byte_perm, one subtract, the top halves packed),
+//     int4 by or-ing each nibble into the mantissa of the bf16 128 and one
+//     bf16x2 subtract of 136.
+//   * x is staged once per CTA in shared memory as bf16, rows padded by 16
+//     bytes (the 8 lanes of a load phase hit distinct banks), zero past M and
+//     past K.  Each CTA stages only its own K range.
+//   * Every weight load of a warp (up to 4 chunks x 2 rows = 8 x 16 bytes a
+//     lane, 32 KB a CTA) is issued first, then the scale and bias of the row
+//     the thread will finish, then x in batches of 4 loads a thread: the whole
+//     matrix is in flight at once on a 128+ CTA grid, and no load waits
+//     behind another's latency (a loop that loads once per trip pays one
+//     memory latency per trip).
+//   * The grid fills the card on every frame shape: a CTA of 8 warps owns RT
+//     16-row tiles (warp w: tile w % RT, K slice w / RT of 8 / RT), and K is
+//     split further across a thread-block cluster of CS CTAs (<= 8, the
+//     portable limit).  Every warp pushes its partial sums straight into the
+//     shared memory of the CTA that finishes those rows (distributed shared
+//     memory stores, one cluster barrier), which adds the slices in a fixed
+//     order (cluster rank 0 first, then K slice 0 first): deterministic, one
+//     launch, no workspace, no atomics, no remote loads.  A plan with one
+//     CTA per cluster launches without the cluster attribute, which costs
+//     launch time and changes nothing for one CTA.  The tiling, split and order come
+//     from (N, K, format) alone (kernels/qlinear.py launch_plan), never from
+//     M, so a lane's y is bit-identical alone and inside a batch.
+//   * The scale (and bias) is applied once, after the f32 sum.
+//
+// f32 x (the flow net's 3 quantized linears, the codec, the f32 reference
+// model) -- `qlinear_f32_kernel`, on the CUDA cores, unchanged from the first
+// version: one warp per output row, each lane's 16-byte slices of the row all
+// loaded before it computes, x staged as f32 in 512-byte chunks permuted so
+// the lanes' 128-bit reads are conflict-free, one butterfly per row of x.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 8;  // output rows per block
+constexpr int kWarps = 8;  // warps per block, both routes
 constexpr int kThreads = kWarps * 32;
+constexpr int kMaxRows = 32;  // rows of x
+
+// -- f32 route --------------------------------------------------------------
+
 constexpr int kChunkBytes = 512;  // q bytes of a row per chunk: 32 lanes x 16
 constexpr int kMaxChunks = 8;     // rows of at most 4096 bytes
-constexpr int kMaxRows = 32;      // rows of x
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Float index, inside a chunk's staged x row, of the chunk's byte j: lane
 // j / 16, byte i = j % 16 of the lane's slice; group i / 4 of all 32 lanes is
@@ -71,11 +99,12 @@ __device__ __forceinline__ int stage_index(int j) {
   return ((i >> 2) << 7) + (lane << 2) + (i & 3);
 }
 
-template <typename T, int MB, bool PACKED>
+template <int MB, bool PACKED>
 __global__ void __launch_bounds__(kThreads)
-    qlinear_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
-                   const T* __restrict__ scale, const T* __restrict__ bias, T* __restrict__ y,
-                   int M, int N, int K, int row_bytes, int chunks, int aligned) {
+    qlinear_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
+                       const float* __restrict__ scale, const float* __restrict__ bias,
+                       float* __restrict__ y, int M, int N, int K, int row_bytes, int chunks,
+                       int aligned) {
   extern __shared__ float4 smem[];  // [PACKED ? 2 : 1][MB][kChunkBytes] floats
   float* xs = reinterpret_cast<float*>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -116,9 +145,9 @@ __global__ void __launch_bounds__(kThreads)
       const int m = t / kChunkBytes, j = t % kChunkBytes, jj = base + j;
       float lo = 0.f, hi = 0.f;
       if (m < M && jj < row_bytes) {
-        const T* xr = x + static_cast<size_t>(m) * K;
-        lo = to_f32(xr[jj]);
-        if (PACKED) hi = to_f32(xr[row_bytes + jj]);
+        const float* xr = x + static_cast<size_t>(m) * K;
+        lo = xr[jj];
+        if (PACKED) hi = xr[row_bytes + jj];
       }
       xs[m * kChunkBytes + stage_index(j)] = lo;
       if (PACKED) xs[(MB + m) * kChunkBytes + stage_index(j)] = hi;
@@ -174,61 +203,376 @@ __global__ void __launch_bounds__(kThreads)
     if (m == lane) mine = a;
   }
   if (lane < M) {
-    float r = mine * to_f32(scale[n]);
-    if (bias != nullptr) r += to_f32(bias[n]);
-    y[static_cast<size_t>(lane) * N + n] = from_f32<T>(r);
+    float r = mine * scale[n];
+    if (bias != nullptr) r += bias[n];
+    y[static_cast<size_t>(lane) * N + n] = r;
   }
 }
 
-template <typename T, int MB, bool PACKED>
-int launch(const void* x, const void* q, const void* scale, const void* bias, void* y, int M,
-           int N, int K, int row_bytes, int aligned, cudaStream_t stream) {
+template <int MB, bool PACKED>
+int launch_f32(const void* x, const void* q, const void* scale, const void* bias, void* y, int M,
+               int N, int K, int row_bytes, int aligned, cudaStream_t stream) {
   const int smem = (PACKED ? 2 : 1) * MB * kChunkBytes * static_cast<int>(sizeof(float));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        qlinear_kernel<T, MB, PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        qlinear_f32_kernel<MB, PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int chunks = (row_bytes + kChunkBytes - 1) / kChunkBytes;
-  qlinear_kernel<T, MB, PACKED><<<(N + kWarps - 1) / kWarps, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(q), static_cast<const T*>(scale),
-      static_cast<const T*>(bias), static_cast<T*>(y), M, N, K, row_bytes, chunks, aligned);
+  qlinear_f32_kernel<MB, PACKED><<<(N + kWarps - 1) / kWarps, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const uint8_t*>(q),
+      static_cast<const float*>(scale), static_cast<const float*>(bias), static_cast<float*>(y),
+      M, N, K, row_bytes, chunks, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool PACKED>
-int dispatch_rows(const void* x, const void* q, const void* scale, const void* bias, void* y,
-                  int M, int N, int K, int row_bytes, int aligned, cudaStream_t s) {
-  if (M <= 1) return launch<T, 1, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
-  if (M <= 2) return launch<T, 2, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
-  if (M <= 4) return launch<T, 4, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
-  if (M <= 8) return launch<T, 8, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
-  if (M <= 16) return launch<T, 16, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
-  return launch<T, 32, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
+template <bool PACKED>
+int dispatch_f32(const void* x, const void* q, const void* scale, const void* bias, void* y,
+                 int M, int N, int K, int row_bytes, int aligned, cudaStream_t s) {
+  if (M <= 1) return launch_f32<1, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
+  if (M <= 2) return launch_f32<2, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
+  if (M <= 4) return launch_f32<4, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
+  if (M <= 8) return launch_f32<8, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
+  if (M <= 16) return launch_f32<16, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
+  return launch_f32<32, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
+}
+
+// -- bf16 route: tensor cores -------------------------------------------------
+
+constexpr int kMmaChunk = 64;     // q bytes of a row per chunk: 4 lanes x 16
+constexpr int kMaxChunksWarp = 4;  // chunks a warp loads at once (8 x 16 B a lane)
+constexpr int kMaxCluster = 8;     // portable cluster size
+constexpr int kMaxXExtent = 2048;  // x elements of a row staged per CTA
+
+// Two signed bytes (b_lo, b_hi of `w`, selected by `sel`) -> bf16x2, exact.
+// 0x4B000000 | u is the float 2^23 + u; u = byte ^ 0x80 = byte + 128.
+__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t wx, uint32_t sel_lo, uint32_t sel_hi) {
+  const float lo = __uint_as_float(__byte_perm(wx, 0x4B000000u, sel_lo)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(wx, 0x4B000000u, sel_hi)) - 8388736.f;
+  // |value| <= 128: the low 16 bits of each float are zero, its top half is
+  // the bf16 value
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  __nv_bfloat162 va, vb;
+  memcpy(&va, &a, 4);
+  memcpy(&vb, &b, 4);
+  const __nv_bfloat162 r = __hsub2(va, vb);
+  uint32_t out;
+  memcpy(&out, &r, 4);
+  return out;
+}
+
+// One 32-bit word of int8 weights (bytes 4s .. 4s + 3 of a lane's slice) ->
+// the pair of A registers it feeds: (k slots 2t, 2t+1) and (2t+8, 2t+9).
+__device__ __forceinline__ void s8_frag(uint32_t w, uint32_t& p01, uint32_t& p23) {
+  const uint32_t wx = w ^ 0x80808080u;
+  p01 = s8x2_to_bf16x2(wx, 0x7440u, 0x7441u);
+  p23 = s8x2_to_bf16x2(wx, 0x7442u, 0x7443u);
+}
+
+// One 32-bit word of packed int4 -> A register pairs of the low nibbles (first
+// half of K) and the high nibbles (second half).  0x4300 | n is the bf16
+// 128 + n; minus 136 gives n - 8.
+__device__ __forceinline__ void s4_frag(uint32_t w, uint32_t& lo01, uint32_t& lo23,
+                                        uint32_t& hi01, uint32_t& hi23) {
+  const uint32_t t01 = __byte_perm(w, 0u, 0x4140u);  // bytes 0, 1 at bits 0 and 16
+  const uint32_t t23 = __byte_perm(w, 0u, 0x4342u);
+  const uint32_t k136 = 0x43084308u;
+  lo01 = bf16x2_sub((t01 & 0x000F000Fu) | 0x43004300u, k136);
+  lo23 = bf16x2_sub((t23 & 0x000F000Fu) | 0x43004300u, k136);
+  hi01 = bf16x2_sub(((t01 >> 4) & 0x000F000Fu) | 0x43004300u, k136);
+  hi23 = bf16x2_sub(((t23 >> 4) & 0x000F000Fu) | 0x43004300u, k136);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint4 load_slice(const uint8_t* row, int off, int row_bytes,
+                                            bool aligned) {
+  if (aligned) {  // volatile: issued here, before x is staged, not sunk to its use
+    uint4 v;
+    asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "l"(row + off));
+    return v;
+  }
+  uint32_t words[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (off + i < row_bytes) words[i >> 2] |= static_cast<uint32_t>(row[off + i]) << (8 * (i & 3));
+  return make_uint4(words[0], words[1], words[2], words[3]);
+}
+
+// Grid: (N tiles / RT) x CS CTAs, clusters of CS along x.  CTA (block b,
+// rank r): rows [b * 16 RT, (b + 1) * 16 RT), bytes [r * span, (r + 1) *
+// span) of every row, span = (8 / RT) * cpw * 64.  Warp w: tile w % RT, bytes
+// [(w / RT) * cpw * 64, ...) of the CTA's span.  MT = tiles of 8 rows of x.
+template <int MT, bool PACKED>
+__global__ void __launch_bounds__(kThreads)
+    qlinear_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ scale,
+                       const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                       int M, int N, int K, int row_bytes, int aligned, int xvec, int rt, int cs,
+                       int cpw) {
+  constexpr int MB = 8 * MT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int kw = kWarps / rt;
+  const int span = kw * cpw * kMmaChunk;           // bytes of a row per CTA
+  const int extent = span * (PACKED ? 2 : 1);      // x elements per staged row
+  const int xs_stride = extent + 8;                // + 16 bytes: no bank conflicts
+  const int rows = 16 * rt;                        // output rows per CTA
+  const int own = rows / cs;                       // output rows each rank finishes
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  float* recv = reinterpret_cast<float*>(smem_raw + static_cast<size_t>(MB) * xs_stride * 2);
+  // recv: [cs * kw][MB][own] the partial sums of this rank's own rows, one
+  // slice per (source rank, K slice), written by every warp of the cluster
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());  // K split across the cluster
+  const int block = blockIdx.x / cs;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = warp % rt, ks = warp / rt;
+  const int b0 = rank * span;  // first byte of the CTA's span
+  const int wb0 = b0 + ks * cpw * kMmaChunk;
+
+  // 1. every weight load of this warp, issued at once
+  const int r0 = block * rows + tile * 16 + g, r1 = r0 + 8;
+  const uint8_t* row0 = q + static_cast<size_t>(r0 < N ? r0 : 0) * row_bytes;
+  const uint8_t* row1 = q + static_cast<size_t>(r1 < N ? r1 : 0) * row_bytes;
+  uint4 w0[kMaxChunksWarp], w1[kMaxChunksWarp];
+#pragma unroll
+  for (int c = 0; c < kMaxChunksWarp; ++c) {
+    w0[c] = w1[c] = make_uint4(0u, 0u, 0u, 0u);
+    const int off = wb0 + c * kMmaChunk + t * 16;
+    if (c < cpw && off < row_bytes) {
+      if (r0 < N) w0[c] = load_slice(row0, off, row_bytes, aligned);
+      if (r1 < N) w1[c] = load_slice(row1, off, row_bytes, aligned);
+    }
+  }
+
+  // the scale and bias of the one row this thread finishes (own divides
+  // kThreads), loaded now so their latency hides under the weights'
+  const int lr = threadIdx.x % own;
+  const int n_out = block * rows + rank * own + lr;
+  float sc = 0.f, bi = 0.f;
+  if (n_out < N) {
+    sc = __bfloat162float(scale[n_out]);
+    if (bias != nullptr) bi = __bfloat162float(bias[n_out]);
+  }
+
+  // every CTA of the cluster must be running before another writes its shared
+  // memory: arrive now, wait just before the pushes
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // 2. stage x[:, the CTA's K range] as bf16; zero past M and past K
+  if (xvec) {  // K (and row_bytes for int4) a multiple of 8, x 16-byte aligned
+    const int groups = extent / 8;
+    // kBatch loads in flight a thread, then their stores
+    constexpr int kBatch = 4;
+    for (int i0 = threadIdx.x; i0 < MB * groups; i0 += kBatch * kThreads) {
+      uint4 v[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = i0 + b * kThreads, m = i / groups, kl = (i % groups) * 8;
+        const int half = PACKED && kl >= span;
+        const int j = b0 + kl - (half ? span : 0);  // byte of the row
+        v[b] = make_uint4(0u, 0u, 0u, 0u);
+        if (i < MB * groups && m < M && j < row_bytes)
+          v[b] = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(m) * K + j +
+                                                 (half ? row_bytes : 0));
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = i0 + b * kThreads;
+        if (i < MB * groups)
+          *reinterpret_cast<uint4*>(xs + (i / groups) * xs_stride + (i % groups) * 8) = v[b];
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < MB * extent; i += kThreads) {
+      const int m = i / extent, kl = i % extent;
+      const int half = PACKED && kl >= span;
+      const int j = b0 + kl - (half ? span : 0);
+      __nv_bfloat16 v = __float2bfloat16_rn(0.f);
+      if (m < M && j < row_bytes) v = x[static_cast<size_t>(m) * K + j + (half ? row_bytes : 0)];
+      xs[m * xs_stride + kl] = v;
+    }
+  }
+  __syncthreads();
+
+  // 3. the MMAs: chunk c, sub-step s, x tile j; one K order for every M
+  float acc[MT][4];
+#pragma unroll
+  for (int j = 0; j < MT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kMaxChunksWarp; ++c) {
+    if (c >= cpw || wb0 + c * kMmaChunk >= row_bytes) break;  // uniform over the warp
+    const int kl = (ks * cpw + c) * kMmaChunk + t * 16;  // x element of B's first k
+    const uint32_t a0w[4] = {w0[c].x, w0[c].y, w0[c].z, w0[c].w};
+    const uint32_t a1w[4] = {w1[c].x, w1[c].y, w1[c].z, w1[c].w};
+#pragma unroll
+    for (int j = 0; j < MT; ++j) {
+      const __nv_bfloat16* xr = xs + (8 * j + g) * xs_stride + kl;
+      const uint4 xl0 = *reinterpret_cast<const uint4*>(xr);
+      const uint4 xl1 = *reinterpret_cast<const uint4*>(xr + 8);
+      const uint32_t bl[8] = {xl0.x, xl0.y, xl0.z, xl0.w, xl1.x, xl1.y, xl1.z, xl1.w};
+      uint32_t bh[8];
+      if (PACKED) {
+        const uint4 xh0 = *reinterpret_cast<const uint4*>(xr + span);
+        const uint4 xh1 = *reinterpret_cast<const uint4*>(xr + span + 8);
+        bh[0] = xh0.x, bh[1] = xh0.y, bh[2] = xh0.z, bh[3] = xh0.w;
+        bh[4] = xh1.x, bh[5] = xh1.y, bh[6] = xh1.z, bh[7] = xh1.w;
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (PACKED) {
+          uint32_t l0, l2, h0, h2, l1, l3, h1, h3;
+          s4_frag(a0w[s], l0, l2, h0, h2);  // row g
+          s4_frag(a1w[s], l1, l3, h1, h3);  // row g + 8
+          mma_bf16(acc[j], l0, l1, l2, l3, bl[2 * s], bl[2 * s + 1]);
+          mma_bf16(acc[j], h0, h1, h2, h3, bh[2 * s], bh[2 * s + 1]);
+        } else {
+          uint32_t p0, p2, p1, p3;
+          s8_frag(a0w[s], p0, p2);
+          s8_frag(a1w[s], p1, p3);
+          mma_bf16(acc[j], p0, p1, p2, p3, bl[2 * s], bl[2 * s + 1]);
+        }
+      }
+    }
+  }
+
+  // 4. push the partial sums to the rank that finishes each row, through
+  // distributed shared memory: lane (g, t) holds rows g, g + 8 x columns
+  // 8j + 2t, 8j + 2t + 1 (only columns < M are sent)
+  const int slot = rank * kw + ks;
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = tile * 16 + g + 8 * half;
+    float* dst = cluster.map_shared_rank(recv, r / own) +
+                 static_cast<size_t>(slot) * MB * own + r % own;
+#pragma unroll
+    for (int j = 0; j < MT; ++j) {
+      const int m = 8 * j + 2 * t;
+      if (m < M) dst[m * own] = acc[j][2 * half];
+      if (m + 1 < M) dst[(m + 1) * own] = acc[j][2 * half + 1];
+    }
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");  // every push visible
+
+  // 5. this rank's rows [rank * own, (rank + 1) * own): the slices summed in
+  // order (source rank 0 first, K slice 0 first), scaled, the bias added
+  const int slots = cs * kw;
+  if (n_out < N) {
+    for (int m = threadIdx.x / own; m < M; m += kThreads / own) {
+      float v = 0.f;
+      for (int q = 0; q < slots; ++q) v += recv[(static_cast<size_t>(q) * MB + m) * own + lr];
+      y[static_cast<size_t>(m) * N + n_out] = __float2bfloat16_rn(v * sc + bi);
+    }
+  }
+}
+
+template <int MT, bool PACKED>
+int launch_mma(const void* x, const void* q, const void* scale, const void* bias, void* y, int M,
+               int N, int K, int row_bytes, int aligned, int xvec, int rt, int cs, int cpw,
+               int smem, cudaStream_t stream) {
+  static int configured = 48 * 1024;  // dynamic shared memory the kernel is allowed
+  auto kernel = qlinear_mma_kernel<MT, PACKED>;
+  if (smem > configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = smem;
+  }
+  const int tiles = (N + 15) / 16;
+  if (cs == 1) {  // a plain launch: a one-CTA cluster launch costs more and does the same
+    kernel<<<(tiles + rt - 1) / rt, kThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
+        static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(bias),
+        static_cast<__nv_bfloat16*>(y), M, N, K, row_bytes, aligned, xvec, rt, cs, cpw);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((tiles + rt - 1) / rt * cs));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cs);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
+      static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(y), M, N, K, row_bytes, aligned, xvec, rt, cs, cpw);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PACKED>
+int dispatch_mma(const void* x, const void* q, const void* scale, const void* bias, void* y,
+                 int M, int N, int K, int row_bytes, int aligned, int xvec, int rt, int cs,
+                 int cpw, int smem, cudaStream_t s) {
+  if (M <= 8)
+    return launch_mma<1, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, xvec, rt, cs,
+                                 cpw, smem, s);
+  if (M <= 16)
+    return launch_mma<2, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, xvec, rt, cs,
+                                 cpw, smem, s);
+  return launch_mma<4, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, xvec, rt, cs,
+                               cpw, smem, s);
 }
 
 }  // namespace
 
-// y [M, N] = scale * (x [M, K] @ q^T) (+ bias), on `stream`.  q [N, row_bytes]
-// int8 (packed = 0, row_bytes = K) or split-half int4 (packed = 1, row_bytes =
-// K / 2); x, scale [N], bias [N] (or null) and y are bfloat16 (is_bf16 = 1) or
-// float32, contiguous.  aligned = 1 promises q's base and row_bytes are
-// multiples of 16.  1 <= M <= 32, 1 <= row_bytes <= 4096.  Returns a
-// cudaError_t.
-extern "C" int pt_qlinear(const void* x, const void* q, const void* scale, const void* bias,
-                          void* y, int M, int N, int K, int row_bytes, int packed, int is_bf16,
-                          int aligned, void* stream_ptr) {
+// f32 route.  y [M, N] = scale * (x [M, K] @ q^T) (+ bias), on `stream`.  q
+// [N, row_bytes] int8 (packed = 0, row_bytes = K) or split-half int4 (packed =
+// 1, row_bytes = K / 2); x, scale [N], bias [N] (or null) and y float32,
+// contiguous.  aligned = 1 promises q's base and row_bytes are multiples of
+// 16.  1 <= M <= 32, 1 <= row_bytes <= 4096.  Returns a cudaError_t.
+extern "C" int pt_qlinear_f32(const void* x, const void* q, const void* scale, const void* bias,
+                              void* y, int M, int N, int K, int row_bytes, int packed,
+                              int aligned, void* stream_ptr) {
   if (M < 1 || M > kMaxRows || N < 1 || row_bytes < 1 ||
       row_bytes > kMaxChunks * kChunkBytes || K != (packed ? 2 : 1) * row_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  if (is_bf16) {
-    return packed ? dispatch_rows<__nv_bfloat16, true>(x, q, scale, bias, y, M, N, K, row_bytes,
-                                                       aligned, s)
-                  : dispatch_rows<__nv_bfloat16, false>(x, q, scale, bias, y, M, N, K,
-                                                        row_bytes, aligned, s);
-  }
-  return packed ? dispatch_rows<float, true>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s)
-                : dispatch_rows<float, false>(x, q, scale, bias, y, M, N, K, row_bytes, aligned,
-                                              s);
+  return packed ? dispatch_f32<true>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s)
+                : dispatch_f32<false>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
+}
+
+// bf16 route, the same function with x, scale, bias and y bfloat16, on the
+// tensor cores, launched as kernels/qlinear.py launch_plan says: rt 16-row
+// tiles per CTA (1, 2, 4 or 8; 8 / rt warps split its K span), a cluster of
+// cs CTAs (1-8) splitting K, cpw 64-byte chunks per warp (1-4), smem bytes of
+// dynamic shared memory.  aligned as above; xvec = 1 promises K (and, packed,
+// row_bytes) a multiple of 8 and x 16-byte aligned.  Returns a cudaError_t.
+extern "C" int pt_qlinear_bf16(const void* x, const void* q, const void* scale, const void* bias,
+                               void* y, int M, int N, int K, int row_bytes, int packed,
+                               int aligned, int xvec, int rt, int cs, int cpw, int smem,
+                               void* stream_ptr) {
+  const int span = (rt > 0 ? kWarps / rt : 0) * cpw * kMmaChunk;
+  if (M < 1 || M > kMaxRows || N < 1 || row_bytes < 1 || K != (packed ? 2 : 1) * row_bytes ||
+      (rt != 1 && rt != 2 && rt != 4 && rt != 8) || cs < 1 || cs > kMaxCluster ||
+      (16 * rt) % cs != 0 || cpw < 1 || cpw > kMaxChunksWarp || span * cs < row_bytes ||
+      span * (packed ? 2 : 1) > kMaxXExtent)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  return packed ? dispatch_mma<true>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, xvec, rt,
+                                     cs, cpw, smem, s)
+                : dispatch_mma<false>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, xvec, rt,
+                                      cs, cpw, smem, s);
 }

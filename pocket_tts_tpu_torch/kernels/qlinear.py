@@ -1,5 +1,5 @@
-"""Weight-only int8 / int4 linear layers: the hand-written Hopper GEMV
-``csrc/qlinear.cu`` (it replaces XLA's fusion of ``QTensor.dequant`` into
+"""Weight-only int8 / int4 linear layers: the hand-written Hopper kernels of
+``csrc/qlinear.cu`` (they replace XLA's fusion of ``QTensor.dequant`` into
 the consuming matmul, ``pocket_tts_tpu/ops/qtensor.py:61-93``; there is no
 Pallas kernel behind it).
 
@@ -9,7 +9,9 @@ scale's), as the JAX package does, for ``x`` [..., K] and a QTensor ``w``
 
 * CPU tensors run :func:`qlinear_reference`, the plain version.
 * CUDA tensors with at most :data:`MAX_ROWS` rows of x (the decode frame at
-  B <= 32) launch the kernel; ``qlinear.launches`` counts the launches.
+  B <= 32) launch a kernel; ``qlinear.launches`` counts the launches.  A
+  bfloat16 weight takes the tensor-core route, sized by :func:`launch_plan`;
+  a float32 one the CUDA-core route (one warp per output row).
 * CUDA tensors with more rows (prefill, conditioning, the codec's transformer
   over 16 positions per frame) go through ``mat()`` and one ``torch.matmul``
   by this shape rule, never as a fall back; ``qlinear.large_m`` counts them.
@@ -23,6 +25,8 @@ plain tensor takes ``x.to(w.dtype) @ w.T (+ b)``, a QTensor :func:`qlinear`.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import threading
 
 import torch
@@ -31,8 +35,15 @@ from pocket_tts_tpu_torch.kernels import build as build_mod
 from pocket_tts_tpu_torch.ops.qtensor import QTensor, mat
 
 SOURCE = build_mod.PKG / "csrc" / "qlinear.cu"
-MAX_ROWS = 32  # rows of x the kernel takes (kMaxRows)
-MAX_ROW_BYTES = 4096  # bytes of q per output row (kMaxChunks * 512)
+MAX_ROWS = 32  # rows of x the kernels take (kMaxRows)
+MAX_ROW_BYTES = 4096  # bytes of q per output row (the f32 route's kMaxChunks * 512)
+WARPS = 8  # warps per CTA (kWarps)
+CHUNK = 64  # bytes of a row per MMA chunk: 4 lanes x 16 (kMmaChunk)
+MAX_CHUNKS_WARP = 4  # chunks a warp loads at once (kMaxChunksWarp)
+MAX_CLUSTER = 8  # the portable cluster size (kMaxCluster)
+MAX_X_EXTENT = 2048  # x elements of a row staged per CTA (kMaxXExtent)
+TARGET_CTAS = 128  # about one CTA per SM of the H100's 132
+MAX_SMEM_BYTES = 232_448  # shared memory one CTA may use on Hopper (227 KB)
 
 _lock = threading.Lock()
 _lib = None
@@ -48,11 +59,97 @@ def _load():
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            fn = lib.pt_qlinear
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            f32, bf16 = lib.pt_qlinear_f32, lib.pt_qlinear_bf16
+            f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            bf16.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+            f32.restype = bf16.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One launch of the tensor-core route for an [N, K] weight (bytes of a
+    row ``row_bytes`` = K, or K / 2 packed int4).
+
+    The N rows fall in 16-row tiles; a CTA of :data:`WARPS` warps owns
+    ``tiles_per_cta`` of them (``rows`` = 16 x that), and warp w takes tile
+    ``w % tiles_per_cta`` and K slice ``w // tiles_per_cta`` of
+    ``k_warps``.  A cluster of ``cluster`` CTAs splits the bytes of a row:
+    CTA rank r of row block b covers bytes ``[r * span, (r + 1) * span)``,
+    its warp slice s ``chunks_per_warp`` chunks of :data:`CHUNK` bytes from
+    ``r * span + s * chunks_per_warp * CHUNK``.  Rank r finishes output rows
+    ``[r * rows / cluster, (r + 1) * rows / cluster)`` of its row block,
+    adding the partial sums of every (rank, K slice) in that order, rank 0
+    and K slice 0 first.  ``grid`` CTAs in all; ``x_extent`` elements of
+    each row of x staged per CTA (both halves of K for int4); ``smem`` bytes
+    of dynamic shared memory for ``x_rows`` staged rows of x.  Everything
+    but ``x_rows`` and ``smem`` depends on (N, K, format) alone, never on
+    M."""
+
+    rows: int
+    tiles_per_cta: int
+    k_warps: int
+    cluster: int
+    chunks_per_warp: int
+    span: int
+    x_extent: int
+    row_blocks: int
+    grid: int
+    x_rows: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def _tiling(n: int, k: int, packed: bool) -> tuple[int, int, int]:
+    """(tiles per CTA, cluster size, chunks per warp) for an [N, K] weight.
+
+    The first choice, in this order, whose grid has at least
+    :data:`TARGET_CTAS` CTAs: more tiles per CTA first (every tile of a CTA
+    shares its staged x, so fewer row blocks read x from L2 fewer times),
+    then the smallest cluster.  Valid: at most :data:`MAX_CHUNKS_WARP` chunks
+    a warp (all loaded at once), no warp slice wholly past the row, at most
+    :data:`MAX_X_EXTENT` staged x elements a row, cluster <= 8 (the portable
+    size: 16 needs a non-portable opt-in and may not be scheduled).  A weight
+    too small to fill the grid takes the valid choice with the most CTAs."""
+    row_bytes = k // 2 if packed else k
+    tiles = -(-n // 16)
+    chunks = -(-row_bytes // CHUNK)
+    best = None
+    for rt in (8, 4, 2, 1):
+        kw = WARPS // rt
+        for cs in (1, 2, 4, 8):
+            splits = kw * cs
+            cpw = -(-chunks // splits)
+            span = kw * cpw * CHUNK
+            if (cpw > MAX_CHUNKS_WARP or (splits - 1) * cpw >= chunks
+                    or span * (2 if packed else 1) > MAX_X_EXTENT):
+                continue
+            ctas = -(-tiles // rt) * cs
+            if ctas >= TARGET_CTAS:
+                return rt, cs, cpw
+            if best is None or ctas > best[0]:
+                best = (ctas, (rt, cs, cpw))
+    if best is None:
+        raise ValueError(f"qlinear: no tensor-core tiling for N={n} K={k}")
+    return best[1]
+
+
+def launch_plan(m: int, n: int, k: int, packed: bool) -> LaunchPlan:
+    """The tensor-core route's launch for ``m`` rows of x against an [n, k]
+    weight (int8, or split-half int4 if ``packed``); no card needed."""
+    if not 1 <= m <= MAX_ROWS:
+        raise ValueError(f"qlinear: {m} rows of x; the kernel takes 1-{MAX_ROWS}")
+    rt, cs, cpw = _tiling(n, k, packed)
+    kw = WARPS // rt
+    span = kw * cpw * CHUNK
+    extent = span * (2 if packed else 1)
+    x_rows = 8 * (1 if m <= 8 else 2 if m <= 16 else 4)
+    row_blocks = -(-n // (16 * rt))
+    smem = x_rows * (extent + 8) * 2 + kw * x_rows * 16 * rt * 4
+    return LaunchPlan(rows=16 * rt, tiles_per_cta=rt, k_warps=kw, cluster=cs,
+                      chunks_per_warp=cpw, span=span, x_extent=extent, row_blocks=row_blocks,
+                      grid=row_blocks * cs, x_rows=x_rows, smem=smem)
 
 
 def as_matrix(w: QTensor) -> QTensor:
@@ -109,13 +206,20 @@ def qlinear(x: torch.Tensor, w: QTensor, b: torch.Tensor | None = None) -> torch
     lib = _load()
     y = torch.empty((m, n), dtype=w2.dtype, device=x.device)
     row_bytes = w2.q.shape[-1]
+    packed = int(w2.packed)
     aligned = int(row_bytes % 16 == 0 and w2.q.data_ptr() % 16 == 0)
+    ptrs = (x2.data_ptr(), w2.q.data_ptr(), w2.scale.data_ptr(),
+            None if b is None else b.data_ptr(), y.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pt_qlinear(x2.data_ptr(), w2.q.data_ptr(), w2.scale.data_ptr(),
-                             None if b is None else b.data_ptr(), y.data_ptr(), m, n, k,
-                             row_bytes, int(w2.packed), int(w2.dtype == torch.bfloat16), aligned,
-                             stream)
+        if w2.dtype == torch.bfloat16:
+            plan = launch_plan(m, n, k, w2.packed)
+            xvec = int(k % 8 == 0 and row_bytes % 8 == 0 and x2.data_ptr() % 16 == 0)
+            err = lib.pt_qlinear_bf16(*ptrs, m, n, k, row_bytes, packed, aligned, xvec,
+                                      plan.tiles_per_cta, plan.cluster, plan.chunks_per_warp,
+                                      plan.smem, stream)
+        else:
+            err = lib.pt_qlinear_f32(*ptrs, m, n, k, row_bytes, packed, aligned, stream)
     if err != 0:
         raise RuntimeError(f"qlinear: CUDA launch failed with error {err} (M={m} N={n} K={k} "
                            f"{'int4' if w2.packed else 'int8'} {w2.dtype})")

@@ -248,15 +248,23 @@ class Engine:
 
     # -- prefill -----------------------------------------------------------
 
-    def prefill_tokens(self, state: dict, tokens: np.ndarray, n_valid: int) -> dict:
-        """Prefill ``tokens`` [B, n] (right-padded to a text bucket)."""
+    def prefill_tokens(self, state: dict, tokens: np.ndarray,
+                       n_valid: int | np.ndarray | list) -> dict:
+        """Prefill ``tokens`` [B, n] (right-padded to a text bucket).
+        ``n_valid`` is one count for every lane or a per-lane [B] vector; a
+        lane with 0 valid tokens writes nothing and keeps its position."""
         b = tokens.shape[0]
         bucket = _bucket(tokens.shape[1], self._rcfg.text_buckets)
         padded = np.zeros((b, bucket), np.int32)
         padded[:, : tokens.shape[1]] = tokens
         params = self.params["flow_lm"]
-        emb = flow_lm.embed_text(params, torch.from_numpy(padded).to(self.device))
-        t_valid = torch.full((b,), n_valid, dtype=torch.int32, device=self.device)
+        emb = flow_lm.embed_text(params, self.put(padded, torch.int32))
+        counts = np.asarray(n_valid, np.int32)
+        if counts.ndim == 0:
+            counts = np.full((b,), counts, np.int32)
+        elif counts.shape != (b,):
+            raise ValueError(f"prefill_tokens: n_valid of shape {counts.shape} for {b} lanes")
+        t_valid = self.put(counts, torch.int32)
         kc, vc, pos = flow_lm.prefill(params, self.cfg, state["kc"], state["vc"],
                                       state["pos"], emb, t_valid)
         return {**state, "kc": kc, "vc": vc, "pos": pos}

@@ -36,7 +36,7 @@ from pocket_tts_tpu_torch.config import (
     Config,
     load_variant,
 )
-from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams
+from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams, _clone
 
 logger = logging.getLogger(__name__)
 
@@ -275,7 +275,7 @@ class TTSModel:
         if base is None:
             st, base_len = eng.new_state(), 0
         else:
-            st = {k: v.clone() for k, v in base.as_dict().items()}
+            st = {k: _clone(v) for k, v in base.as_dict().items()}
             base_len = base.length
         room = max(0, eng._rcfg.max_seq - eng.prompt_reserve - base_len)
         if n_frames > room:

@@ -189,7 +189,7 @@ def test_batcher_matches_single_stream_on_cuda(cuda_device):
         assert abs(got - want).max() <= 1e-4
 
 
-# -- qlinear: the weight-only int8 / int4 GEMV ---------------------------------
+# -- qlinear: the weight-only int8 / int4 products ------------------------------
 
 # (M, N, K) of the decode frame at B = 1, 4, 16, 32: in_proj as [3E, E], ff1,
 # ff2, and the flow net's final linear; then an odd shape
@@ -230,6 +230,50 @@ def test_qlinear_kernel_matches_plain_on_cuda(cuda_device, m, n, k, dtype, bits)
     assert ql.qlinear.launches == launches + 1 and got.dtype == dtype
     ref = ql.qlinear_reference(x, w, b)
     assert (got.float() - ref.float()).abs().max().item() <= qlinear_tolerance(dtype, ref)
+
+
+def _qlinear_case(device, m, n, k, bits, seed):
+    from pocket_tts_tpu_torch.ops.qtensor import quantize_array
+
+    g = torch.Generator().manual_seed(seed)
+    w = quantize_array(torch.randn(n, k, generator=g) * k ** -0.5, bits=bits)
+    x = torch.randn(m, k, generator=g).to(device, torch.bfloat16)
+    return w.to(device).to(torch.bfloat16), x
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n,k", [(3072, 1024), (4096, 1024), (1024, 4096)])
+def test_qlinear_lane_is_bit_identical_at_any_batch(cuda_device, n, k, bits):
+    """The tensor-core route's tiling, K split and reduction order do not
+    depend on M: a row of x alone (M = 1) gives the same y, bit for bit, as
+    the same row inside M = 16 (and M = 32), and a call repeats bit for bit."""
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+
+    w, x = _qlinear_case(cuda_device, 32, n, k, bits, n + k + bits)
+    y16, y32 = ql.qlinear(x[:16], w), ql.qlinear(x, w)
+    for r in (0, 7, 15):
+        alone = ql.qlinear(x[r:r + 1].contiguous(), w)
+        assert torch.equal(alone[0], y16[r]) and torch.equal(alone[0], y32[r])
+    assert torch.equal(ql.qlinear(x[:16], w), y16)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qlinear_cuda_graph_replays_eager(cuda_device, bits):
+    """One call (a cluster launch) captured in a CUDA graph replays to the
+    eager result, and a replay does not pass through the wrapper."""
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+
+    w, x = _qlinear_case(cuda_device, 16, 1024, 4096, bits, 11)
+    eager = ql.qlinear(x, w)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ql.qlinear(x, w)
+    out.zero_()
+    launches = ql.qlinear.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert ql.qlinear.launches == launches and torch.equal(out, eager)
 
 
 def test_qlinear_stacked_in_proj_and_shape_rule_on_cuda(cuda_device):

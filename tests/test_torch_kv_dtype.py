@@ -192,3 +192,30 @@ def test_kv_fp8_composes_with_int8_weights(exported):
     ref = jquantize(JaxTTS(_cfg(CFG, "float8_e4m3"), jp, gen=JaxGen(temp=0.0),
                            has_real_weights=False)).generate(TEXT)
     assert ac.shape == ref.shape and np.abs(ac - ref).max() <= 1e-4
+
+
+def test_fp8_voice_continuation_matches_jax_and_keeps_the_voice(exported):
+    """A cloned voice on a float8_e4m3 cache through ``generate_with_pauses``
+    with ``continuation_frames``: each later segment extends a copy of the
+    voice state (``_prefill_voice(base=)``, copied as its bytes), so the
+    voice's cache bytes are unchanged afterwards, and the float audio is
+    within 1e-4 of JAX's same run."""
+    jp, tp = exported
+    text = "The first part is spoken here. [pause:300ms] And the second part follows."
+    wav = (np.random.default_rng(7).standard_normal(24000) * 0.1).astype(np.float32)
+    port = _port(tp, "float8_e4m3")
+    vs = port.get_voice_state_from_audio(wav)
+    assert vs.kc.dtype == torch.float8_e4m3fn
+    before = {name: tattn.raw_view(t).clone() for name, t in vs.as_dict().items()}
+    extended, extend = [], port.extend_voice_state
+    port.extend_voice_state = lambda *a: extended.append(1) or extend(*a)
+    got = port.generate_with_pauses(text, vs, continuation_frames=4)
+    assert extended  # the second segment extended a copy of the voice
+    for name, t in vs.as_dict().items():
+        assert torch.equal(tattn.raw_view(t), before[name]), name
+    ref_model = JaxTTS(_cfg(CFG, "float8_e4m3"), jp, gen=JaxGen(temp=0.0),
+                       has_real_weights=False)
+    ref = ref_model.generate_with_pauses(text, ref_model.get_voice_state_from_audio(wav),
+                                         continuation_frames=4)
+    assert got.shape == ref.shape and got.size > 0
+    assert np.abs(got - ref).max() <= 1e-4
