@@ -59,7 +59,8 @@ result line):
    device us of ``qlinear`` (bf16 x) from CUDA graphs as in phase 3, the
    bound and share, the plain version, ``F.linear`` on the unquantized bf16
    weight and ``torch._weight_int8pack_mm`` as yardsticks, and the wrapper's
-   median ms.  (c) ``quantize_model(bits=8)``: tensors, SNR, the artifact's
+   median ms; the same for f32 x (the flow net's in_w, final_ada_w and
+   final_w at M in {1, 16}) with ``F.linear`` on the f32 weight.  (c) ``quantize_model(bits=8)``: tensors, SNR, the artifact's
    round trip bit for bit and its size.  (d) The int8 and int4 models in
    f32 on the card against the CPU, 4 frames.  (e) ``generate`` on int8,
    int4, int8 + fp8 e4m3 KV and int8 + fp8 + mu-law, with the flow_blocks
@@ -75,6 +76,22 @@ result line):
    ``batched_tts(16, 64)`` on int8 + fp8: 16 requests, launch counts
    checked.  (h) ``quantize --device cuda`` and ``generate --quantized
    --device cuda`` as subprocesses.
+9. Serve: the HTTP tier's request layer (``server/app.py``, driven without
+   aiohttp, which this machine lacks) in one asyncio loop, on the bf16 model
+   behind ``build_state(model, batch_size=16)`` (``start_server``'s batcher
+   and warmup).  (a) A lone temp-0 ``/generate`` (and one with lsd_steps 2)
+   takes the single stream and equals ``generate_with_pauses`` bit for bit.
+   (b) 16 concurrent requests (8 /generate, 4 /stream, 2 OpenAI speech, 2
+   with lsd_steps 2 and a noise clamp): at least 15 ride the batcher, every
+   body has its frame budget's samples, a batched temp-0 lane correlates
+   >= 0.99 with its single stream; wall, aggregate x-realtime, p50/p90 per
+   request and the streams' first PCM bytes.  (c) A 3 s base64 voice:
+   encoded once, then a cache hit.  (d) Five client errors -> RequestError
+   400.  (e) A stream closed after its first chunk cancels its batcher
+   request.  (f) /metrics and /health.  (g) 1 lone + 4 concurrent requests
+   on the int8 + fp8 model, qlinear launches against the shape rule.
+   ``flow_blocks`` launches over the phase equal the engines' flow
+   evaluations.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -82,7 +99,11 @@ The last two lines are a JSON summary of the kernels and
 
 from __future__ import annotations
 
+import asyncio
+import base64
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -139,7 +160,8 @@ def _median_ms(fn, n: int = 100, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
-def phase_environment() -> str:
+def phase_environment() -> tuple[str, str]:
+    """(the device's name, nvidia-smi's name and power limit line)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU",
               file=sys.stderr)
@@ -153,7 +175,7 @@ def phase_environment() -> str:
           f"cuda {torch.version.cuda} device {kind} count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return kind
+    return kind, smi
 
 
 def phase_build():
@@ -888,6 +910,10 @@ BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 QLINEAR_MS = (1, 4, 16, 32)
 QLINEAR_NK = ((3072, 1024), (4096, 1024), (1024, 4096), (1024, 32))
 QLINEAR_ODD = (3, 1000, 1002)
+# the f32-x route: the flow net's quantized linears (in_w, final_ada_w,
+# final_w as N x K) at the main path's and the batcher's B
+QLINEAR_F32_NK = ((512, 32), (1024, 512), (32, 512))
+QLINEAR_F32_MS = (1, 16)
 MULAW_STEP = (1 << 10) / 32767.0  # worst-case companding step, float audio
 
 
@@ -989,12 +1015,50 @@ def _narrow_kernel(dev) -> dict:
     return {"worst_err_over_tol": worst, "max_abs_err": max(worst_abs, err)}
 
 
+def _qlinear_turns(fns: dict, flush, m: int, nbytes: int, flops: int, peak: float,
+                   times_ms: bool) -> dict:
+    """Cold and warm device us of each of ``fns`` (kernel first), in turns
+    (each palindrome of turns twice: a cold time is the difference of two
+    ~90 us graphs), the bound from ``nbytes`` and ``flops`` at ``peak``, the
+    share; with ``times_ms`` the wrapper's, the plain version's and the
+    library call's median ms."""
+    graphs = {"flush": _capture(flush)}
+    for name, fn in fns.items():
+        graphs[name + "_cold"] = _capture(fn, flush=flush)
+        graphs[name + "_warm"] = _capture(fn, reps=20)
+    names = list(fns)
+    order = 2 * (["flush"] + [f"{a}_cold" for a in names + names[::-1]] + ["flush"]
+                 + [f"{a}_warm" for a in names + names[::-1]])
+    turns = {key: [] for key in graphs}
+    for key in order:
+        turns[key].append(_replay_us(graphs[key]))
+    mean = {key: statistics.mean(v) for key, v in turns.items()}
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
+    t_ops = flops / peak * 1e6
+    rec = {f"{a}_cold_us": mean[f"{a}_cold"] - mean["flush"] for a in names}
+    rec |= {f"{a}_warm_us": mean[f"{a}_warm"] / 20 for a in names}
+    rec |= {"bound_us": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    rec["share_cold"] = rec["bound_us"] / rec["kernel_cold_us"]
+    rec["share_warm"] = rec["bound_us"] / rec["kernel_warm_us"]
+    if times_ms:
+        rec["ms"] = _median_ms(fns["kernel"])
+        rec["plain_ms"] = _median_ms(fns["plain"])
+        for lib in ("int8pack", "linear_f32"):
+            if lib in fns:
+                rec["library_ms"] = _median_ms(fns[lib])
+    for graph in graphs.values():
+        graph.reset()
+    return rec
+
+
 def _narrow_times(dev) -> dict:
-    """(b) cold and warm device us of qlinear (bf16 x, the backbone's dtype)
-    at every shape, int8 and int4, with the plain version, F.linear on the
-    unquantized bf16 weight and torch._weight_int8pack_mm as yardsticks, in
-    turns (each palindrome of turns twice: a cold time is the difference of
-    two ~90 us graphs); the bound; the wrapper's median ms."""
+    """(b) cold and warm device us of qlinear at every shape, int8 and int4:
+    bf16 x (the backbone's route) with the plain version, F.linear on the
+    unquantized bf16 weight and torch._weight_int8pack_mm as yardsticks; f32
+    x (the flow net's route: in_w, final_ada_w, final_w) at M in {1, 16}
+    with the plain version and F.linear on the f32 weight; the bound; the
+    wrapper's median ms."""
     import torch.nn.functional as F
 
     from pocket_tts_tpu_torch.kernels import qlinear as ql
@@ -1005,7 +1069,7 @@ def _narrow_times(dev) -> dict:
         flush_buf.fill_(1.0)
 
     g = torch.Generator().manual_seed(1)
-    out, library_error = {}, None
+    out, out_f32, library_error = {}, {}, None
     for bits in (8, 4):
         for n, k in QLINEAR_NK:
             for m in QLINEAR_MS:
@@ -1021,34 +1085,20 @@ def _narrow_times(dev) -> dict:
                         fns["int8pack"] = lambda: pack(x, w.q, w.scale)
                     except (RuntimeError, NotImplementedError, AttributeError) as e:
                         library_error = f"unsupported: {type(e).__name__}: {str(e)[:160]}"
-                graphs = {"flush": _capture(flush)}
-                for name, fn in fns.items():
-                    graphs[name + "_cold"] = _capture(fn, flush=flush)
-                    graphs[name + "_warm"] = _capture(fn, reps=20)
-                names = list(fns)
-                order = 2 * (["flush"] + [f"{a}_cold" for a in names + names[::-1]] + ["flush"]
-                             + [f"{a}_warm" for a in names + names[::-1]])
-                turns = {key: [] for key in graphs}
-                for key in order:
-                    turns[key].append(_replay_us(graphs[key]))
-                mean = {key: statistics.mean(v) for key, v in turns.items()}
                 nbytes = w.q.numel() + 2 * (n + m * k + m * n)
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
-                t_ops = 2 * m * n * k / BF16_TENSOR_FLOPS * 1e6
-                rec = {f"{a}_cold_us": mean[f"{a}_cold"] - mean["flush"] for a in names}
-                rec |= {f"{a}_warm_us": mean[f"{a}_warm"] / 20 for a in names}
-                rec |= {"bound_us": max(t_bytes, t_ops),
-                        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-                rec["share_cold"] = rec["bound_us"] / rec["kernel_cold_us"]
-                rec["share_warm"] = rec["bound_us"] / rec["kernel_warm_us"]
-                if m == 1 or (m == 16 and bits == 8):
-                    rec["ms"] = _median_ms(fns["kernel"])
-                    rec["plain_ms"] = _median_ms(fns["plain"])
-                    if "int8pack" in fns:
-                        rec["library_ms"] = _median_ms(fns["int8pack"])
-                out[(bits, m, n, k)] = rec
-                for graph in graphs.values():
-                    graph.reset()
+                out[(bits, m, n, k)] = _qlinear_turns(
+                    fns, flush, m, nbytes, 2 * m * n * k, BF16_TENSOR_FLOPS,
+                    m == 1 or (m == 16 and bits == 8))
+        for n, k in QLINEAR_F32_NK:
+            for m in QLINEAR_F32_MS:
+                w32, w, x = _qlinear_case(g, m, n, k, bits, torch.float32, dev)
+                wf = w32.to(dev)
+                fns = {"kernel": lambda: ql.qlinear(x, w),
+                       "plain": lambda: ql.qlinear_reference(x, w),
+                       "linear_f32": lambda: F.linear(x, wf)}
+                nbytes = w.q.numel() + 4 * (n + m * k + m * n)
+                out_f32[(bits, m, n, k)] = _qlinear_turns(
+                    fns, flush, m, nbytes, 2 * m * n * k, F32_FLOPS, True)
     del flush_buf
     torch.cuda.empty_cache()
     for (bits, m, n, k), r in out.items():
@@ -1062,8 +1112,16 @@ def _narrow_times(dev) -> dict:
               f"{r['bound_by']}, share {r['share_cold']:.4f} cold / {r['share_warm']:.4f} warm; "
               f"yardsticks cold/warm us: plain {r['plain_cold_us']:.3f}/{r['plain_warm_us']:.3f}, "
               f"F.linear bf16 {r['linear_cold_us']:.3f}/{r['linear_warm_us']:.3f}{lib}{ms}")
+    for (bits, m, n, k), r in out_f32.items():
+        print(f"narrow: qlinear int{bits} M={m} {n}x{k} f32: cold {r['kernel_cold_us']:.3f} us, "
+              f"warm {r['kernel_warm_us']:.3f} us; bound {r['bound_us']:.3f} us by "
+              f"{r['bound_by']}, share {r['share_cold']:.4f} cold / {r['share_warm']:.4f} warm; "
+              f"yardsticks cold/warm us: plain {r['plain_cold_us']:.3f}/{r['plain_warm_us']:.3f}, "
+              f"F.linear f32 {r['linear_f32_cold_us']:.3f}/{r['linear_f32_warm_us']:.3f}; "
+              f"wrapper {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, F.linear f32 "
+              f"{r['library_ms']:.4f} ms")
     print(f"narrow: torch._weight_int8pack_mm on CUDA: {library_error or 'timed above'}")
-    return {"per_shape": out, "library_error": library_error}
+    return {"per_shape": out, "per_shape_f32": out_f32, "library_error": library_error}
 
 
 def _flat(tree) -> list:
@@ -1448,8 +1506,9 @@ def _narrow_cli(model) -> None:
     tmp.cleanup()
 
 
-def phase_narrow(model, dev) -> dict:
-    """Phase 8: narrow storage at full width."""
+def phase_narrow(model, dev):
+    """Phase 8: narrow storage at full width; returns its numbers and the
+    int8 + fp8 e4m3 model."""
     from pocket_tts_tpu_torch.runtime.quantize import quantize_model
 
     t0 = time.perf_counter()
@@ -1467,10 +1526,331 @@ def phase_narrow(model, dev) -> dict:
     out["batch"] = _narrow_batch(q8fp8)
     _narrow_cli(model)
     print(f"narrow: phase took {time.perf_counter() - t0:.1f} s")
+    return out, q8fp8
+
+
+# -- phase 9: the serving tier -------------------------------------------------------
+
+SERVE_TEXT = "The server answers a lone request on the single stream."
+# the two temp-0 requests among the 16 concurrent ones (texts of their own,
+# so the batcher's submissions tell whether each rode it)
+EXACT_TEXTS = ("This exact request keeps a lane of its own.",
+               "Another exact request is decoded in its own lane.")
+CANCEL_TEXT = " ".join(f"Sentence {i} of a stream the client walks away from." for i in range(8))
+
+
+def _wav_samples(data: bytes) -> np.ndarray:
+    """A WAV body -> int16 samples, its format checked: 24 kHz mono int16."""
+    with wave.open(io.BytesIO(data), "rb") as f:
+        fmt = (f.getframerate(), f.getnchannels(), f.getsampwidth())
+        n = f.getnframes()
+    _require(fmt == (24000, 1, 2), f"serve: WAV format {fmt}")
+    pcm = np.frombuffer(data[44:], "<i2")
+    _require(pcm.size == n, f"serve: WAV header says {n} samples, body holds {pcm.size}")
+    return pcm
+
+
+def _pct(values, q) -> float:
+    return float(np.percentile(values, q))
+
+
+class _Submissions:
+    """Texts the batcher was handed, by wrapping its ``submit`` on the
+    instance (both ``generate`` and ``stream`` go through it)."""
+
+    def __init__(self, batcher):
+        self.texts: list[str] = []
+        self.batcher = batcher
+        orig = batcher.submit
+
+        def submit(text, *a, **kw):
+            self.texts.append(text)
+            return orig(text, *a, **kw)
+
+        batcher.submit = submit
+
+    def close(self):
+        del self.batcher.submit
+
+
+async def _serve_requests(state, model, budgets: dict, refs: dict) -> dict:
+    """(a)-(f) and the burst turns (b2) on one event loop; returns the
+    numbers printed."""
+    from pocket_tts_tpu_torch.server import app
+
+    b = state.batcher
+    fs, sr = model.frame_size, model.sample_rate
+    out = {}
+
+    # (a) lone requests: the single stream, bit for bit the library's run
+    for key, body in (("lone", {"text": SERVE_TEXT, "temperature": 0}),
+                      ("lone_lsd2", {"text": SERVE_TEXT, "temperature": 0, "lsd_steps": 2})):
+        sub = b.stats()["requests_submitted"]
+        t0 = time.perf_counter()
+        wav = await app.generate_wav(state, body)
+        wall = time.perf_counter() - t0
+        _require(b.stats()["requests_submitted"] == sub, f"serve {key}: rode the batcher")
+        got = _wav_samples(wav)
+        _require(got.size == budgets[SERVE_TEXT] * fs, f"serve {key}: {got.size} samples")
+        _require(wav == refs[key], f"serve {key}: differs from generate_with_pauses at temp 0")
+        out[key] = {"wall_ms": wall * 1e3, "x_realtime": got.size / sr / wall}
+
+    # (b) 16 concurrent requests: 8 /generate (two at temp 0), 4 /stream,
+    # 2 OpenAI speech, 2 with lsd_steps 2 and a noise clamp
+    texts = list(EXACT_TEXTS) + [BATCH_SENTENCES[i % 8] for i in range(2, 16)]
+    kinds = ["generate"] * 8 + ["stream"] * 4 + ["speech"] * 2 + ["generate"] * 2
+    bodies = [{"text": t} for t in texts]
+    bodies[0]["temperature"] = bodies[1]["temperature"] = 0
+    for body in bodies[14:]:
+        body |= {"lsd_steps": 2, "noise_clamp": 0.5}
+    walls, firsts = [None] * 16, []
+
+    async def one(i):
+        t0 = time.perf_counter()
+        if kinds[i] == "stream":
+            chunks = await app.open_stream(state, bodies[i])
+            pieces = []
+            async for c in chunks:
+                if not pieces:
+                    firsts.append((time.perf_counter() - t0) * 1e3)
+                pieces.append(c)
+            pcm = np.frombuffer(b"".join(pieces), "<i2")
+        elif kinds[i] == "speech":
+            pcm = _wav_samples(await app.generate_wav(state, app.openai_body(
+                {"model": "pocket-tts", "input": texts[i], "voice": "alba"})))
+        else:
+            pcm = _wav_samples(await app.generate_wav(state, bodies[i]))
+        walls[i] = (time.perf_counter() - t0) * 1e3
+        return pcm
+
+    subs = _Submissions(b)
+    t0 = time.perf_counter()
+    try:
+        pcms = await asyncio.gather(*(one(i) for i in range(16)))
+    finally:
+        subs.close()
+    wall = time.perf_counter() - t0
+    _require(len(subs.texts) >= 15, f"serve: {len(subs.texts)} of 16 concurrent requests rode "
+                                    "the batcher")
+    for text, pcm in zip(texts, pcms):
+        _require(pcm.size == budgets[text] * fs, f"serve {text!r}: {pcm.size} samples != "
+                                                 f"{budgets[text]} x {fs}")
+        _require(float(pcm.astype(np.float32).std()) > 0, f"serve {text!r}: silent")
+    # each temp-0 request that rode the batcher (one at least) against its
+    # own lone single stream: bf16 lanes drift from B=1
+    corrs = [float(np.corrcoef(pcms[i].astype(np.float64), refs[texts[i]].astype(np.float64))[0, 1])
+             for i in (0, 1) if texts[i] in subs.texts]
+    _require(corrs and min(corrs) >= 0.99, f"serve: batched temp-0 lane vs single stream: {corrs}")
+    secs = sum(p.size for p in pcms) / sr
+    out["concurrent"] = {"wall_ms": wall * 1e3, "x_realtime": secs / wall,
+                         "p50_ms": _pct(walls, 50), "p90_ms": _pct(walls, 90),
+                         "first_pcm_p50_ms": _pct(firsts, 50), "first_pcm_p90_ms": _pct(firsts, 90),
+                         "batched": len(subs.texts), "corr": corrs}
+
+    # (b2) one burst of 16 /generate, routed (the first takes the single
+    # stream) and with the single stream's lock held (all 16 on the
+    # batcher), in turns: what the routing policy costs a burst
+    burst = [{"text": BATCH_SENTENCES[i % 8]} for i in range(16)]
+
+    async def one_burst(all_batched: bool) -> float:
+        sub = b.stats()["requests_submitted"]
+        t = time.perf_counter()
+        async with state.lock if all_batched else contextlib.nullcontext():
+            await asyncio.gather(*(app.generate_wav(state, dict(body)) for body in burst))
+        t = (time.perf_counter() - t) * 1e3
+        n = b.stats()["requests_submitted"] - sub
+        _require(n == 16 if all_batched else n >= 15, f"serve burst: {n} on the batcher")
+        return t
+
+    out["burst_ms"] = {"all_batcher": [], "routed": []}
+    for all_batched in (True, False, True):
+        out["burst_ms"]["all_batcher" if all_batched else "routed"].append(
+            await one_burst(all_batched))
+
+    # (c) a 3 s voice as base64 WAV bytes: encoded once, then a cache hit
+    pcm = (np.clip(_synthetic_voice(3.0, sr, seed=8), -1, 1) * 32767).astype("<i2")
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as f:
+        f.setnchannels(2)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(pcm.T.tobytes())
+    spec = base64.b64encode(buf.getvalue()).decode()
+    resolve, times = state.resolve, []
+
+    def timed_resolve(s):
+        t = time.perf_counter()
+        vs = resolve(s)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        return vs
+
+    state.resolve = timed_resolve
+    try:
+        lens, voiced = [], []
+        for _ in range(2):
+            before = len(state.cache)
+            voiced.append(_wav_samples(await app.generate_wav(
+                state, {"text": VOICE_TEXT, "voice": spec, "temperature": 0})))
+            lens.append(len(state.cache) - before)
+    finally:
+        del state.resolve
+    _require(lens == [1, 0], f"serve voice: cache grew by {lens} (want [1, 0])")
+    _require(np.array_equal(voiced[0], voiced[1]) and voiced[0].size == budgets[VOICE_TEXT] * fs,
+             "serve voice: the cached voice's temp-0 audio differs or is the wrong length")
+    out["voice_ms"] = times
+
+    # (d) client errors
+    bad = [("missing text", {}), ("lsd_steps 0", {"text": "x", "lsd_steps": 0}),
+           ("continuation_frames", {"text": "x", "continuation_frames": "lots"}),
+           ("adapter", {"text": "x", "adapter": "spk"}),
+           ("voice", {"text": "x", "voice": "no-such-voice"})]
+    for name, body in bad:
+        for call in (app.generate_wav, app.open_stream):
+            try:
+                await call(state, body)
+            except app.RequestError as e:
+                _require(e.status == 400, f"serve {name}: status {e.status}")
+            else:
+                raise RuntimeError(f"serve {name}: {call.__name__} raised no RequestError")
+
+    # (e) a stream closed after its first chunk retires its batcher request
+    cancelled = b.stats()["requests_cancelled"]
+    async with state.lock:  # the single stream is busy: the stream rides the batcher
+        chunks = await app.open_stream(state, {"text": CANCEL_TEXT})
+        await anext(chunks)
+        await chunks.aclose()
+    deadline = time.monotonic() + 10
+    while not b.idle():
+        _require(time.monotonic() < deadline, f"serve: batcher not idle 10 s after a cancel: "
+                                              f"{b.stats()}")
+        await asyncio.sleep(0.01)
+    _require(b.stats()["requests_cancelled"] == cancelled + 1, "serve: cancel not counted")
+
+    # (f) metrics and health
+    text = app.metrics_text(state)
+    done = b.stats()["requests_completed"]
+    _require(f"pocket_tts_requests_completed {done}\n" in text, f"serve metrics: {text}")
+    health = app.health(state)
+    _require(health["status"] == "ok" and "dead" not in health["batcher"]
+             and not b.stats()["dead"], f"serve health: {health}")
+    out["completed"] = done
     return out
 
 
-def _qlinear_entry(narrow: dict) -> dict:
+async def _serve_quantized(state, model, budget: int) -> dict:
+    """(g) one lone and four concurrent requests on the int8 + fp8 model."""
+    from pocket_tts_tpu_torch.server import app
+
+    body = {"text": NARROW_TEXT}
+    lone = _wav_samples(await app.generate_wav(state, body))
+    t0 = time.perf_counter()
+    many = await asyncio.gather(*(app.generate_wav(state, dict(body)) for _ in range(4)))
+    wall = time.perf_counter() - t0
+    for pcm in [lone] + [_wav_samples(w) for w in many]:
+        _require(pcm.size == budget * model.frame_size, f"serve int8+fp8: {pcm.size} samples")
+    return {"wall_ms": wall * 1e3}
+
+
+def phase_serve(model, q8fp8, smi: str) -> dict:
+    """Phase 9: the serving tier's request layer (no aiohttp on this
+    machine), on the full-width model; returns the launch counts."""
+    from pocket_tts_tpu_torch import audio, native
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+    from pocket_tts_tpu_torch.server import app
+
+    t_phase = time.perf_counter()
+    lib = native.available()
+    model.gen = GenParams(temp=0.7, eos_threshold=float("inf"))
+    sr = model.sample_rate
+    budgets = {t: _budget(model, t)
+               for t in (SERVE_TEXT, VOICE_TEXT) + EXACT_TEXTS + BATCH_SENTENCES}
+    # the library's single stream at temp 0, before the counted window
+    lone_audio, lib_ms = _timed(lambda: model.with_params(temp=0).generate_with_pauses(SERVE_TEXT))
+    refs = {"lone": audio.wav_bytes(lone_audio, sr),
+            "lone_lsd2": audio.wav_bytes(model.with_params(
+                temp=0, lsd_decode_steps=2).generate_with_pauses(SERVE_TEXT), sr)}
+    for text in EXACT_TEXTS:
+        refs[text] = (np.clip(model.with_params(temp=0).generate_with_pauses(text), -1, 1)
+                      * 32767).astype("<i2")
+
+    torch.cuda.synchronize()
+    fb.flow_blocks.launches = ql.qlinear.launches = 0
+    evals0 = model.engine.flow_evals
+    t0 = time.perf_counter()
+    state = app.build_state(model, batch_size=16)  # start_server's batcher and warmup
+    warm_s = time.perf_counter() - t0
+    try:
+        out = asyncio.run(_serve_requests(state, model, budgets, refs))
+    finally:
+        state.batcher.stop()
+        state.pool.shutdown()
+    launches = fb.flow_blocks.launches
+    # a new batcher's engine starts from 0 evaluations
+    evals = model.engine.flow_evals - evals0 + state.batcher.engine.flow_evals
+    _require(launches == evals > 0, f"serve: flow_blocks launches {launches} != the engines' "
+                                    f"flow evaluations {evals}")
+    _require(ql.qlinear.launches == 0, "serve: qlinear launched on the bf16 model")
+
+    # (g) the int8 + fp8 model behind its own state
+    q8fp8.gen = model.gen
+    qstate = app.build_state(q8fp8, batch_size=16)
+    qengines = [q8fp8.engine, qstate.batcher.engine]
+    expects = [_ExpectedQlinear(e) for e in qengines]
+    qevals0 = [e.flow_evals for e in qengines]
+    torch.cuda.synchronize()
+    fb.flow_blocks.launches = ql.qlinear.launches = 0
+    try:
+        qout = asyncio.run(_serve_quantized(qstate, q8fp8, _budget(q8fp8, NARROW_TEXT)))
+    finally:
+        for x in expects:
+            x.close()
+        qstate.batcher.stop()
+        qstate.pool.shutdown()
+    qlaunches, qflow = ql.qlinear.launches, fb.flow_blocks.launches
+    qevals = sum(e.flow_evals - v for e, v in zip(qengines, qevals0))
+    want = sum(x.count for x in expects)
+    _require(qlaunches == want > 0, f"serve int8+fp8: qlinear launches {qlaunches} != {want}")
+    _require(qflow == qevals > 0, f"serve int8+fp8: flow_blocks {qflow} != evaluations {qevals}")
+
+    lone, con = out["lone"], out["concurrent"]
+    secs = time.perf_counter() - t_phase
+    print(f"serve [{smi}]: request layer without aiohttp, native audio library "
+          f"{'loaded' if lib else 'not loaded (numpy versions)'}; build_state (batched_tts "
+          f"B=16 chunk 64 depth 2, warmup) {warm_s:.2f} s")
+    print(f"serve [{smi}]: lone /generate temp 0 ({budgets[SERVE_TEXT]} frames, single stream, "
+          f"== generate_with_pauses bit for bit; lsd_steps 2 too): {lone['wall_ms']:.1f} ms, "
+          f"x-realtime {lone['x_realtime']:.2f} (lsd 2: {out['lone_lsd2']['wall_ms']:.1f} ms); "
+          f"the library's generate_with_pauses alone, before the server: {lib_ms:.1f} ms")
+    print(f"serve [{smi}]: 16 concurrent (8 /generate, 4 /stream, 2 speech, 2 lsd 2 + clamp), "
+          f"{con['batched']} on the batcher: wall {con['wall_ms']:.1f} ms, aggregate x-realtime "
+          f"{con['x_realtime']:.2f}, per-request p50 {con['p50_ms']:.1f} / p90 "
+          f"{con['p90_ms']:.1f} ms; streams' first PCM bytes p50 {con['first_pcm_p50_ms']:.1f} / "
+          f"p90 {con['first_pcm_p90_ms']:.1f} ms; batched temp-0 lane vs its single stream "
+          f"corr {', '.join(f'{c:.5f}' for c in con['corr'])}")
+    bursts = out["burst_ms"]
+    print(f"serve [{smi}]: a burst of 16 /generate in turns (all on the batcher, routed, all on the "
+          f"batcher): all on the batcher {', '.join(f'{t:.1f}' for t in bursts['all_batcher'])} ms; "
+          f"routed (one on the single stream, 15 on the batcher) "
+          f"{', '.join(f'{t:.1f}' for t in bursts['routed'])} ms")
+    print(f"serve [{smi}]: 3 s base64 voice: resolve cold {out['voice_ms'][0]:.1f} ms, cached "
+          f"{out['voice_ms'][1]:.3f} ms (cache +1 then +0, temp-0 audio equal); 5 client errors x "
+          f"2 routes -> RequestError 400; a stream closed after its first chunk cancelled, "
+          f"batcher idle; /metrics requests_completed {out['completed']}, /health ok")
+    print(f"serve [{smi}]: int8 + fp8 e4m3: 1 lone + 4 concurrent {NARROW_TEXT!r}, 4 in "
+          f"{qout['wall_ms']:.1f} ms; qlinear launches {qlaunches} = the shape rule's, "
+          f"flow_blocks {qflow} = evaluations")
+    print(f"serve [{smi}]: flow_blocks launches {launches} = the engines' flow evaluations; "
+          f"phase took {secs:.1f} s")
+    return {"flow_launches": launches, "flow_launches_quantized": qflow,
+            "qlinear_launches": qlaunches}
+
+
+
+
+def _qlinear_entry(narrow: dict, serve: dict) -> dict:
     """The kernels line's qlinear entry: the main-path numbers at B = 1 on ff1
     (int8, 4096 x 1024, bf16 x), and every timed shape cold and warm."""
     times = narrow["times"]
@@ -1480,6 +1860,10 @@ def _qlinear_entry(narrow: dict) -> dict:
         "linear_cold_us", "linear_warm_us") + (("int8pack_cold_us", "int8pack_warm_us")
                                               if "int8pack_cold_us" in r else ())}
         for (bits, m, n, k), r in times["per_shape"].items()}
+    shapes_f32 = {f"int{bits}_m{m}_{n}x{k}": {key: r[key] for key in (
+        "kernel_cold_us", "kernel_warm_us", "bound_us", "bound_by", "share_cold",
+        "plain_cold_us", "linear_f32_cold_us", "linear_f32_warm_us", "ms", "plain_ms",
+        "library_ms")} for (bits, m, n, k), r in times["per_shape_f32"].items()}
     gen = narrow["generate"]
     return {
         "name": "qlinear", "route": "cuda", "source": "pocket_tts_tpu_torch/csrc/qlinear.cu",
@@ -1490,6 +1874,7 @@ def _qlinear_entry(narrow: dict) -> dict:
         "launches_int4": gen["int4"]["qlinear_launches"],
         "launches_batch": narrow["batch"]["qlinear_launches"],
         "launches_fp8_voice": narrow["voice"]["qlinear_launches"],
+        "launches_serve": serve["qlinear_launches"],
         "max_abs_err_over_tol": narrow["kernel"]["worst_err_over_tol"],
         "max_abs_err": narrow["kernel"]["max_abs_err"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -1498,11 +1883,12 @@ def _qlinear_entry(narrow: dict) -> dict:
         "library_error": times["library_error"],
         "ms_per_frame": {k: v["ms_per_frame"] for k, v in gen.items()},
         "shapes": shapes,
+        "shapes_f32": shapes_f32,
     }
 
 
 def main() -> None:
-    kind = phase_environment()
+    kind, smi = phase_environment()
     phase_build()
     dev = torch.device("cuda")
     kern = phase_kernel(dev)
@@ -1510,7 +1896,8 @@ def main() -> None:
     phase_reference()
     voice_launches = phase_voice(model)
     batch_launches = phase_batch(model)
-    narrow = phase_narrow(model, dev)
+    narrow, q8fp8 = phase_narrow(model, dev)
+    serve = phase_serve(model, q8fp8, smi)
     per_b = {key: {str(b): kern[b][key] for b in TIMED_BATCHES}
              for key in ("device_us_cold", "device_us_warm", "bound_us", "roofline_share",
                          "graph_plain_us", "graph_plain_us_warm")}
@@ -1520,6 +1907,8 @@ def main() -> None:
         "replaces": "pocket_tts_tpu/ops/pallas/flow_kernel.py:107",
         "launches": launches, "launches_voice": voice_launches,
         "launches_batch": batch_launches,
+        "launches_serve": serve["flow_launches"],
+        "launches_serve_quantized": serve["flow_launches_quantized"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern[1]["ms"], "plain_ms": kern[1]["plain_ms"],
         "bound_ms": kern[1]["bound_us"] / 1e3, "bound_by": kern[1]["bound_by"],
@@ -1527,7 +1916,7 @@ def main() -> None:
         "ms_b4": kern[4]["ms"], "plain_ms_b4": kern[4]["plain_ms"],
         "ms_b16": kern[16]["ms"], "plain_ms_b16": kern[16]["plain_ms"],
         **per_b,
-    }, _qlinear_entry(narrow)]}))
+    }, _qlinear_entry(narrow, serve)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -3,11 +3,14 @@
 
 ``read_wav`` is a direct RIFF parser (the stdlib ``wave`` module rejects
 IEEE-float files); ``resample`` is ``scipy.signal.resample_poly``, the
-reference's conversion.
+reference's conversion.  ``pcm_i16_le_bytes``, ``wav_bytes``, ``resample``
+and ``normalize_peak`` run the native library (:mod:`.native`) when it is
+built, and these numpy versions otherwise.
 """
 
 from __future__ import annotations
 
+import io
 import math
 import wave
 from pathlib import Path
@@ -76,6 +79,10 @@ def read_wav(path: str | Path | bytes) -> tuple[np.ndarray, int]:
 def pcm_i16_le_bytes(audio: np.ndarray) -> bytes:
     """float [-1, 1] -> little-endian int16 PCM bytes: samples clipped,
     scaled by 32767 and truncated toward zero."""
+    from pocket_tts_tpu_torch import native
+
+    if native.available():
+        return native.pcm_i16_le_bytes(np.asarray(audio, np.float32))
     pcm = np.clip(np.asarray(audio, np.float32).reshape(-1), -1.0, 1.0) * 32767.0
     return pcm.astype("<i2").tobytes()
 
@@ -89,10 +96,42 @@ def write_wav(path: str | Path, audio: np.ndarray, sample_rate: int) -> None:
         f.writeframes(pcm_i16_le_bytes(audio))
 
 
+def wav_bytes(audio: np.ndarray, sample_rate: int) -> bytes:
+    """A whole mono 16-bit PCM WAV file in memory."""
+    from pocket_tts_tpu_torch import native
+
+    if native.available():
+        return native.wav_bytes(np.asarray(audio, np.float32), sample_rate)
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sample_rate)
+        f.writeframes(pcm_i16_le_bytes(audio))
+    return buf.getvalue()
+
+
+def wav_header(sample_rate: int, n_frames: int = 1_000_000_000) -> bytes:
+    """The 44-byte header of a mono 16-bit WAV stream whose length is not
+    known yet: ``n_frames`` is a large placeholder, not patched later."""
+    buf = io.BytesIO()
+    f = wave.open(buf, "wb")
+    f.setnchannels(1)
+    f.setsampwidth(2)
+    f.setframerate(sample_rate)
+    f.setnframes(n_frames)
+    f._write_header(0)  # noqa: SLF001 - the stdlib has no header-only API
+    return buf.getvalue()
+
+
 def resample(audio: np.ndarray, from_rate: int, to_rate: int) -> np.ndarray:
     """Polyphase resampling along the last axis."""
     if from_rate == to_rate:
         return audio
+    from pocket_tts_tpu_torch import native
+
+    if native.available():
+        return native.resample(np.asarray(audio, np.float32), from_rate, to_rate)
     from scipy.signal import resample_poly
 
     g = math.gcd(int(from_rate), int(to_rate))
@@ -109,3 +148,16 @@ def convert_audio(audio: np.ndarray, from_rate: int, to_rate: int,
             raise ValueError(f"Cannot convert {audio.shape[0]} -> {to_channels} channels")
         audio = audio.mean(axis=0, keepdims=True)
     return resample(audio, from_rate, to_rate)
+
+
+def normalize_peak(audio: np.ndarray, peak: float = 0.99) -> np.ndarray:
+    """Scale ``audio`` down so its largest magnitude is ``peak``; quieter
+    audio is returned as it is."""
+    from pocket_tts_tpu_torch import native
+
+    if native.available():
+        return native.normalize_peak(np.asarray(audio, np.float32), peak)
+    m = float(np.max(np.abs(audio))) if audio.size else 0.0
+    if m <= peak or m == 0.0:
+        return audio
+    return audio * (peak / m)

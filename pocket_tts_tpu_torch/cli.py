@@ -1,14 +1,20 @@
-"""Command-line interface of the port: ``generate``, ``batch`` and
-``quantize`` (port of those subcommands of ``pocket_tts_tpu/cli.py``).
+"""Command-line interface of the port: ``generate``, ``batch``,
+``quantize``, ``serve`` and ``fleet`` (port of those subcommands of
+``pocket_tts_tpu/cli.py``).
 
     python -m pocket_tts_tpu_torch.cli generate --text "Hello." -o out.wav
     python -m pocket_tts_tpu_torch.cli batch --manifest lines.txt -o out_dir
     python -m pocket_tts_tpu_torch.cli quantize -o m.int8.safetensors
+    python -m pocket_tts_tpu_torch.cli serve --device cuda --batch-size 16
+    python -m pocket_tts_tpu_torch.cli fleet --workers http://h1:8001,http://h2:8001
 
 ``generate --stream`` writes raw s16le PCM to stdout.  ``batch`` synthesizes
 a manifest (plain lines, or JSONL ``{"text", "voice"?, "output"?}``)
 concurrently through the continuous batcher, one WAV per line.
-``--quantized`` runs either on int8 weights quantized at load; ``quantize``
+``serve`` starts the HTTP server (``server/app.py``; ``--batch-size`` > 1
+serves concurrent requests through the continuous batcher), ``fleet`` a
+router over several servers (``server/fleet.py``); both need ``aiohttp``.
+``--quantized`` runs on int8 weights quantized at load; ``quantize``
 writes the int8 (or ``--bits 4``) artifact that ``TTSModel.load_quantized``
 and the JAX package read.  ``--device``
 picks the torch device (default ``cuda``; with no card visible the command
@@ -19,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import importlib.util
 import json
 import logging
 import sys
@@ -244,6 +251,42 @@ def cmd_quantize(args) -> int:
     return 0
 
 
+def _need_aiohttp(command: str) -> bool:
+    """False, with a message, when aiohttp is not installed."""
+    if importlib.util.find_spec("aiohttp") is None:
+        print(f"{command} needs the aiohttp package, which is not installed", file=sys.stderr)
+        return False
+    return True
+
+
+def cmd_serve(args) -> int:
+    """The HTTP server; refused before the model loads when it cannot run."""
+    if args.adapter:
+        print("--adapter: per-slot LoRA adapters are not ported yet", file=sys.stderr)
+        return 2
+    if not _need_aiohttp("serve"):
+        return 2
+    from pocket_tts_tpu_torch.server.app import start_server
+
+    model = _load_model(args)
+    _print_device(model)
+    start_server(model, host=args.host, port=args.port,
+                 voice_cache_capacity=args.voice_cache_capacity,
+                 default_voice=args.default_voice, prewarm=tuple(args.prewarm or ()),
+                 warmup=not args.no_warmup, batch_size=args.batch_size)
+    return 0
+
+
+def cmd_fleet(args) -> int:
+    if not _need_aiohttp("fleet"):
+        return 2
+    from pocket_tts_tpu_torch.server.fleet import serve_fleet
+
+    urls = [u for part in args.workers for u in part.split(",") if u]
+    serve_fleet(urls, host=args.host, port=args.port)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("pocket_tts_tpu_torch",
                                 description="Pocket TTS on PyTorch/CUDA")
@@ -284,6 +327,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="8 = int8; 4 = packed int4, half the artifact (~25 dB SNR)")
     _add_gen_params(q)
     q.set_defaults(fn=cmd_quantize)
+
+    s = sub.add_parser("serve", help="start the HTTP server")
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--voice-cache-capacity", type=int, default=8)
+    s.add_argument("--default-voice", default="alba")
+    s.add_argument("--prewarm", nargs="*", default=[], help="voice specs to preload into the LRU")
+    s.add_argument("--no-warmup", action="store_true")
+    s.add_argument("--batch-size", type=int, default=0,
+                   help=">1 serves concurrent requests through the continuous batcher")
+    s.add_argument("--adapter", action="append", metavar="NAME=PATH",
+                   help="not ported yet: exits 2")
+    _add_gen_params(s)
+    s.set_defaults(fn=cmd_serve)
+
+    f = sub.add_parser("fleet", help="route requests over N serve workers")
+    f.add_argument("--host", default="0.0.0.0")
+    f.add_argument("--port", type=int, default=8000)
+    f.add_argument("--workers", nargs="+", required=True,
+                   help="worker base URLs (space- or comma-separated)")
+    f.set_defaults(fn=cmd_fleet)
     return p
 
 

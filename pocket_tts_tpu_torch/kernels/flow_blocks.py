@@ -39,6 +39,7 @@ MAX_SMEM_BYTES = 232_448  # shared memory one CTA may use on Hopper (227 KB)
 SM_SMEM_BYTES = 233_472  # shared memory of one SM (228 KB), 1 KB reserved per CTA
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # launches come from several threads of a server
 _lib = None
 _plans: dict = {}
 _checked: dict = {}  # id()s of validated stacked block tensors -> (tensors, device, dims)
@@ -254,7 +255,8 @@ def flow_blocks(sy: torch.Tensor, h0: torch.Tensor, blocks: dict) -> torch.Tenso
     if err != 0:
         raise RuntimeError(f"flow_blocks: CUDA launch failed with error {err} "
                            f"(batch={batch} dim={dim} depth={depth} {plan})")
-    flow_blocks.launches += 1
+    with _count_lock:
+        flow_blocks.launches += 1
     return out
 
 

@@ -46,6 +46,7 @@ TARGET_CTAS = 128  # about one CTA per SM of the H100's 132
 MAX_SMEM_BYTES = 232_448  # shared memory one CTA may use on Hopper (227 KB)
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # launches come from several threads of a server
 _lib = None
 
 
@@ -197,7 +198,8 @@ def qlinear(x: torch.Tensor, w: QTensor, b: torch.Tensor | None = None) -> torch
     x2 = x.reshape(-1, k).to(w2.dtype).contiguous()
     m = x2.shape[0]
     if m > MAX_ROWS or m == 0:
-        qlinear.large_m += 1
+        with _count_lock:
+            qlinear.large_m += 1
         y = x2 @ mat(w2).T
         if b is not None:
             y = y + b
@@ -223,7 +225,8 @@ def qlinear(x: torch.Tensor, w: QTensor, b: torch.Tensor | None = None) -> torch
     if err != 0:
         raise RuntimeError(f"qlinear: CUDA launch failed with error {err} (M={m} N={n} K={k} "
                            f"{'int4' if w2.packed else 'int8'} {w2.dtype})")
-    qlinear.launches += 1
+    with _count_lock:
+        qlinear.launches += 1
     return y.reshape(*x.shape[:-1], n)
 
 

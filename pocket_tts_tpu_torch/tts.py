@@ -1,9 +1,9 @@
 """TTSModel — the public orchestrator (port of ``pocket_tts_tpu/tts.py``,
 single-stream synthesis on the chunk schedule).
 
-``load`` / ``load_with_params`` / ``load_quantized`` / ``get_voice_state*`` /
-``save_voice_prompt``
-/ ``extend_voice_state`` / ``generate`` / ``generate_stream`` /
+``load`` / ``load_with_params`` / ``load_from_bytes`` / ``load_quantized`` /
+``with_params`` / ``get_voice_state*`` / ``save_voice_prompt`` /
+``extend_voice_state`` / ``generate`` / ``generate_stream`` /
 ``generate_with_pauses`` / ``generate_stream_long``.  Host-side orchestration
 only: all compute is enqueued by ``runtime.Engine`` on the model's device.  A
 voice state is a snapshot of the FlowLM KV cache after conditioning prefill
@@ -78,7 +78,10 @@ class TTSModel:
         # host generator: draws one seed per text segment, in segment order, for
         # that segment's device generator (segments may be enqueued interleaved)
         self._rng = torch.Generator().manual_seed(seed)
-        self._empty_voice: VoiceState | None = None
+        # the empty voice state, built once and shared through this holder by
+        # every with_params / quantize_model clone: a per-clone attribute would
+        # place a fresh max_seq cache on the device for every request
+        self._empty_voice: dict = {"vs": None}
 
     # -- loading -----------------------------------------------------------
 
@@ -163,6 +166,18 @@ class TTSModel:
         return cfg, gen, seed, device
 
     @classmethod
+    def load_from_bytes(cls, weights_bytes: bytes, variant: str = DEFAULT_VARIANT,
+                        **kwargs) -> "TTSModel":
+        """Load from in-memory safetensors bytes (the combined checkpoint
+        layout); the weights are never written to or read from a file.
+        ``kwargs``: those of :meth:`load_with_params`."""
+        cfg, gen, seed, device = cls._parse_loader_kwargs(load_variant(variant), kwargs)
+        _check_device(device)
+        params = weights_mod.from_state_dict(weights_mod.read_safetensors_bytes(weights_bytes),
+                                             cfg)
+        return cls(cfg, params, gen=gen, has_real_weights=True, device=device, seed=seed)
+
+    @classmethod
     def load_quantized(cls, path: str | Path, variant: str = DEFAULT_VARIANT,
                        **kwargs) -> "TTSModel":
         """Load a quantized artifact (``runtime.quantize.save_quantized``, of
@@ -177,6 +192,19 @@ class TTSModel:
         model = cls(cfg, params, gen=gen, has_real_weights=True, device=device, seed=seed)
         model.is_quantized = True
         return model
+
+    def with_params(self, **overrides) -> "TTSModel":
+        """A per-request clone with other generation knobs (``temp``,
+        ``lsd_decode_steps``, ``noise_clamp``, ``eos_threshold``).  It shares
+        the params, the engine, the tokenizer, the host generator and the
+        empty voice state: nothing is placed on the device.  ``None`` means
+        "not overridden"; ``noise_clamp=-1`` unclamps.  An invalid knob
+        raises ValueError (``GenParams``)."""
+        clone = object.__new__(type(self))
+        clone.__dict__.update(self.__dict__)
+        clone.gen = dataclasses.replace(
+            self.gen, **{k: v for k, v in overrides.items() if v is not None})
+        return clone
 
     @property
     def sample_rate(self) -> int:
@@ -202,10 +230,10 @@ class TTSModel:
             if isinstance(source, (str, Path)) and str(source).endswith(".safetensors"):
                 return self.get_voice_state_from_prompt_file(source)
             return self.get_voice_state_from_wav(source, truncate=truncate, overflow=overflow)
-        if self._empty_voice is None:
+        if self._empty_voice["vs"] is None:
             st = self.engine.new_state()
-            self._empty_voice = VoiceState(st["kc"], st["vc"], st["pos"], 0)
-        return self._empty_voice
+            self._empty_voice["vs"] = VoiceState(st["kc"], st["vc"], st["pos"], 0)
+        return self._empty_voice["vs"]
 
     def get_voice_state_from_wav(self, path: str | Path | bytes, truncate: bool = False,
                                  overflow: str | None = None) -> VoiceState:

@@ -345,3 +345,59 @@ def test_quantized_frame_launches_qlinear_on_cuda(cuda_device):
     flow = sum(isinstance(fl["flow"][k], QTensor) for k in ("in_w", "final_ada_w", "final_w"))
     assert backbone == 3 * cfg.flow_lm.transformer.num_layers and flow >= 1
     assert ql.qlinear.launches - launches == 4 * (frame + 2 * flow)
+
+
+# -- the serving tier's request layer (no aiohttp on the card machine) -----------
+
+
+def test_request_layer_serves_lone_and_routed_requests_on_cuda(cuda_device):
+    """``server.app`` driven without HTTP on the card, float32, temp 0: a lone
+    /generate takes the single stream and equals the library's
+    ``generate_with_pauses`` bit for bit; the same request while the
+    single-stream lock is held rides a B = 2 batcher and matches it within
+    1e-4 in float audio (4 int16 LSB with truncation); /stream with the lock
+    held too.  Every flow evaluation is one kernel launch."""
+    import asyncio
+
+    import numpy as np
+
+    from pocket_tts_tpu_torch import audio
+    from pocket_tts_tpu_torch import config as c
+    from pocket_tts_tpu_torch import weights
+    from pocket_tts_tpu_torch.runtime.batcher import batched_tts
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+    from pocket_tts_tpu_torch.server import app
+    from pocket_tts_tpu_torch.tts import TTSModel
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _small_config(c.RuntimeConfig(compute_dtype="float32", decode_chunks=(2, 4, 8)))
+    params = weights.from_state_dict(weights.random_state_dict(cfg, 3), cfg)
+    model = TTSModel(cfg, params, gen=GenParams(temp=0.0, eos_threshold=float("inf")),
+                     has_real_weights=False, device=cuda_device)
+    batcher = batched_tts(model, batch_size=2, chunk_frames=4)
+    state = app.ServerState(model, batcher=batcher)
+    body = {"text": "Served on the card. [pause:100ms] Twice.", "lsd_steps": 2}
+
+    async def main():
+        lone = await app.generate_wav(state, body)
+        assert batcher.stats()["requests_submitted"] == 0
+        async with state.lock:
+            routed = await app.generate_wav(state, body)
+            chunks = await app.open_stream(state, body)
+            pcm = b"".join([c async for c in chunks])
+        return lone, routed, pcm
+
+    try:
+        launches, evals = fb.flow_blocks.launches, model.engine.flow_evals + batcher.engine.flow_evals
+        lone, routed, pcm = asyncio.run(main())
+        evals = model.engine.flow_evals + batcher.engine.flow_evals - evals
+        assert fb.flow_blocks.launches - launches == evals > 0
+        assert batcher.stats()["requests_submitted"] == 2
+    finally:
+        batcher.stop()
+    assert lone == audio.wav_bytes(model.with_params(lsd_decode_steps=2).generate_with_pauses(
+        body["text"]), model.sample_rate)
+    want = np.frombuffer(lone[44:], "<i2").astype(np.int64)
+    for got in (np.frombuffer(routed[44:], "<i2"), np.frombuffer(pcm, "<i2")):
+        assert got.shape == want.shape and want.size > 0
+        assert np.abs(got.astype(np.int64) - want).max() <= 4

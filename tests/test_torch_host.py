@@ -181,6 +181,10 @@ with tempfile.TemporaryDirectory() as tmp:
     assert model.get_voice_state(os.path.join(tmp, "voice.safetensors")).length == vs.length
 voiced = model.generate("Hi there.", vs)
 assert vs.length == 13 and voiced.size and np.isfinite(voiced).all()
+from pocket_tts_tpu_torch import cli, native
+from pocket_tts_tpu_torch.server import app, fleet
+assert audio.wav_bytes(voiced, 24000) == audio.wav_header(24000, voiced.size) + \
+    audio.pcm_i16_le_bytes(voiced)
 loaded = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and m.split(".")[0] in ("jax", "pocket_tts_tpu"))
 assert not loaded, loaded
