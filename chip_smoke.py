@@ -92,6 +92,26 @@ result line):
    on the int8 + fp8 model, qlinear launches against the shape rule.
    ``flow_blocks`` launches over the phase equal the engines' flow
    evaluations.
+10. Train: fine-tuning and per-slot LoRA at full width, with seeded
+   synthetic voices as the training audio.  (a) ``flow_matching_loss`` in
+   float32 (TF32 off) at fixed params, batch and draws, with the
+   consistency term: the loss, each metric and each gradient leaf on the
+   card against the CPU, within ``LOSS_TOL`` / ``GRAD_TOL``.  (b)
+   ``flow_blocks`` and ``qlinear`` raise under autograd.  (c) ``finetune``
+   on 8 pairs of 2-6 s for 8 steps: the loss at each step, ms per step
+   (median, synchronized), peak GiB; ``save_finetuned_params`` ->
+   ``apply_adapted`` bit-equal; a temp-0 ``generate`` of the tuned model
+   with flow_blocks launches = frames x steps.  (d) The same with
+   ``lora_rank=8``: the base params bit-unchanged, the factor artifact's
+   round trip.  (e) Two adapters (ranks 2 and 3, the second on two targets)
+   and the base on a float32 B=4 ``ContinuousBatcher``: each lane against
+   its merged single stream within ``REF_TOL_LSB``.  (f) ``batched_tts(16,
+   64)`` on the bf16 model, 16 requests over base / one / two, with and
+   without the bank in turns (aggregate x-realtime); then the bank on int8
+   + fp8 with the qlinear launches against the shape rule.  (g) ``cli
+   finetune --lora-rank 8`` and ``generate --finetuned`` as subprocesses,
+   then the request layer with that adapter (on the batcher) and the full
+   fine-tune (on its merged model).
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -105,6 +125,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import logging
 import math
 import re
 import statistics
@@ -1247,9 +1268,9 @@ class _ExpectedQlinear:
             self.count += self.backbone if rows <= self.max_rows else 0
             return orig["prefill_tokens"](state, tokens, n_valid)
 
-        def admit_prefill_slot(state, slot, vs, row, n):
+        def admit_prefill_slot(state, slot, vs, row, n, **kw):
             self.count += self.backbone if row.shape[1] <= self.max_rows else 0
-            return orig["admit_prefill_slot"](state, slot, vs, row, n)
+            return orig["admit_prefill_slot"](state, slot, vs, row, n, **kw)
 
         def prefill_conditioning(state, cond, n_valid):
             rows = cond.shape[0] * cond.shape[1]
@@ -1678,9 +1699,9 @@ async def _serve_requests(state, model, budgets: dict, refs: dict) -> dict:
     spec = base64.b64encode(buf.getvalue()).decode()
     resolve, times = state.resolve, []
 
-    def timed_resolve(s):
+    def timed_resolve(s, **kw):
         t = time.perf_counter()
-        vs = resolve(s)
+        vs = resolve(s, **kw)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         return vs
@@ -1850,7 +1871,464 @@ def phase_serve(model, q8fp8, smi: str) -> dict:
 
 
 
-def _qlinear_entry(narrow: dict, serve: dict) -> dict:
+# -- phase 10: fine-tuning and per-slot LoRA ---------------------------------------------
+
+# card vs CPU, float32 with TF32 off, one loss at full width: other summation
+# orders over the same products (bounds of the CPU tests against JAX)
+LOSS_TOL = 1e-5  # x max(1, |CPU|), the loss and each metric
+GRAD_TOL = 1e-4  # x max(1, max |g_CPU|), each gradient leaf
+TRAIN_STEPS = 8
+TRAIN_TEXT = "A tuned voice reads this line."
+ADAPTER_TEXTS = ("The first adapter speaks here.", "The second adapter answers.",
+                 "And the base model closes.")
+
+
+def _train_pairs(sr: int) -> list:
+    """8 (text, mono waveform) pairs of 2-6 s, seeded synthetic voices."""
+    return [(BATCH_SENTENCES[i], _synthetic_voice(2.0 + 4.0 * i / 7, sr, seed=20 + i).mean(0))
+            for i in range(8)]
+
+
+class _StepLog(logging.Handler):
+    """The trainer's per-step log records (loss and the time they were made:
+    each record follows a host read of the step's metrics, a synchronize)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records: list = []
+        self.logger = logging.getLogger("pocket_tts_tpu_torch.training.trainer")
+        self.logger.addHandler(self)
+        self.level0 = self.logger.level
+        self.logger.setLevel(logging.INFO)
+
+    def emit(self, record):
+        self.records.append((record.created, record.args))
+
+    def close(self):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level0)
+        super().close()
+
+
+def _train_card_vs_cpu(model) -> dict:
+    """(a) the loss at full width in float32, card against CPU."""
+    from pocket_tts_tpu_torch.training import flow_matching_loss, make_batch
+    from pocket_tts_tpu_torch.training.loss import sample_draws
+    from pocket_tts_tpu_torch.training.trainer import _map
+
+    pairs = _train_pairs(model.sample_rate)[:2]
+    batch = make_batch(model, pairs)
+    b, tf, ldim = batch["latents"].shape
+    draws = sample_draws(torch.Generator().manual_seed(3), b, tf, ldim, torch.device("cpu"),
+                         consistency=True)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = _map(model.params["flow_lm"],
+                      lambda t: t.detach().to(dev, torch.float32, copy=True).requires_grad_(True))
+        loss, metrics = flow_matching_loss(params, model.config, batch, draws=draws,
+                                           consistency_weight=0.5)
+        loss.backward()
+        out[dev] = ({k: v.item() for k, v in metrics.items()},
+                    {p: t.grad.cpu() for p, t in _flat(params) if t.grad is not None})
+        del params, loss
+    (mg, gg), (mc, gc) = out["cuda"], out["cpu"]
+    worst_m = max(abs(mg[k] - v) / max(1.0, abs(v)) for k, v in mc.items())
+    _require(sorted(mg) == sorted(mc) and worst_m <= LOSS_TOL,
+             f"train: loss/metrics card vs CPU {mg} vs {mc}")
+    _require(sorted(gg) == sorted(gc), "train: gradient leaves differ")
+    worst_g = max(float((gg[p] - g).abs().max()) / max(1.0, float(g.abs().max()))
+                  for p, g in gc.items())
+    _require(worst_g <= GRAD_TOL, f"train: gradient card vs CPU {worst_g} > {GRAD_TOL}")
+    print(f"train: flow_matching_loss full width f32 (TF32 off), B={b}, Tf={tf}, consistency "
+          f"0.5, fixed draws: card vs CPU loss/metrics max rel err {worst_m:.2e} (bound "
+          f"{LOSS_TOL}), {len(gc)} gradient leaves max err / max(1, max|g|) {worst_g:.2e} "
+          f"(bound {GRAD_TOL}); metrics {', '.join(f'{k} {v:.4f}' for k, v in mc.items())}")
+    return {"loss_err": worst_m, "grad_err": worst_g}
+
+
+def _train_guard(dev) -> None:
+    """(b) both kernels refuse autograd on the card."""
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.ops.qtensor import quantize_array
+
+    g = torch.Generator().manual_seed(0)
+    blocks = _random_blocks(g, 512, 6, dev)
+    sy, h0 = _random_inputs(g, 2, 512, dev)
+    w = quantize_array(torch.randn(1024, 1024, generator=g)).to(dev).to(torch.bfloat16)
+    x = torch.randn(1, 1024, generator=g).to(dev, torch.bfloat16)
+    for name, call in (("flow_blocks", lambda: fb.flow_blocks(sy, h0.requires_grad_(True),
+                                                              blocks)),
+                       ("qlinear", lambda: ql.qlinear(x.requires_grad_(True), w))):
+        try:
+            call()
+        except RuntimeError as e:
+            _require("no backward" in str(e), f"train: {name} raised {e}")
+        else:
+            raise RuntimeError(f"train: {name} ran under autograd with an input that "
+                               "requires grad")
+    print("train: flow_blocks and qlinear raise under autograd (inputs requiring grad) "
+          "on the card")
+
+
+def _finetune_run(model, pairs, smi: str, **kw):
+    """One ``finetune`` on the card: (clone, per-step losses, ms per step,
+    peak GiB)."""
+    from pocket_tts_tpu_torch.training import finetune
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log = _StepLog()
+    try:
+        t0 = time.perf_counter()
+        tuned = finetune(model, pairs, steps=TRAIN_STEPS, batch_size=8, lr=1e-4, log_every=1,
+                         seed=0, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        log.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _require(len(log.records) == TRAIN_STEPS, f"train: {len(log.records)} logged steps")
+    losses = [args[2] for _, args in log.records]
+    _require(all(math.isfinite(v) for v in losses), f"train: losses {losses}")
+    steps_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(log.records, log.records[1:])]
+    ms = statistics.median(steps_ms)
+    kind = f"LoRA rank {kw['lora_rank']}" if kw.get("lora_rank") else "full"
+    print(f"train [{smi}]: finetune ({kind}) 8 pairs of 2-6 s x {TRAIN_STEPS} steps, batch 8, "
+          f"full width: losses {', '.join(f'{v:.4f}' for v in losses)}; ms per step "
+          f"{ms:.1f} (median of {len(steps_ms)}, synchronized); peak {peak:.2f} GiB; "
+          f"{wall:.1f} s in all (data prep and the clone included)")
+    return tuned, losses, ms, peak
+
+
+def _generate_launches(m, text: str) -> int:
+    """A temp-0 ``generate`` with EOS off: its flow_blocks launches, checked
+    against frames x lsd_decode_steps."""
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+
+    m.gen = GenParams(temp=0.0, eos_threshold=float("inf"))
+    eng = m.engine
+    torch.cuda.synchronize()
+    fb.flow_blocks.launches = eng.frames_decoded = eng.flow_evals = 0
+    audio = m.generate(text)
+    n = fb.flow_blocks.launches
+    _require(eng.frames_decoded > 0 and n == eng.frames_decoded * m.gen.lsd_decode_steps,
+             f"train: generate flow_blocks launches {n} != frames {eng.frames_decoded} x steps")
+    _require(audio.size == _budget(m, text) * m.frame_size and bool(np.isfinite(audio).all())
+             and float(audio.std()) > 0, f"train: tuned generate: bad audio ({audio.size})")
+    return n
+
+
+def _train_finetunes(model, tmp: Path, smi: str) -> dict:
+    """(c) the full fine-tune and (d) the LoRA fine-tune at full width."""
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.training import (
+        apply_adapted, load_lora_params, save_finetuned_params, save_lora_params)
+
+    pairs = _train_pairs(model.sample_rate)
+    out = {}
+    tuned, losses, ms, peak = _finetune_run(model, pairs, smi)
+    full = tmp / "full.safetensors"
+    save_finetuned_params(tuned.params["flow_lm"], full)
+    back = apply_adapted(model, full)
+    _require(all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        _flat(tuned.params["flow_lm"]), _flat(back.params["flow_lm"]))),
+        "train: save_finetuned_params -> apply_adapted is not bit-equal")
+    moved = not torch.equal(tuned.params["flow_lm"]["tf"]["ff1"], model.params["flow_lm"]["tf"]["ff1"])
+    _require(moved, "train: the full fine-tune moved no weight")
+    ql.qlinear.launches = 0
+    launches = _generate_launches(back, TRAIN_TEXT)
+    _require(ql.qlinear.launches == 0, "train: qlinear launched on a bf16 model")
+    print(f"train: save_finetuned_params -> apply_adapted bit-equal; temp-0 generate of the "
+          f"tuned model: flow_blocks launches {launches} = frames x 1")
+    out["full"] = {"losses": losses, "ms_per_step": ms, "peak_gib": peak,
+                   "generate_launches": launches}
+    del tuned, back
+
+    snapshot = {p: t.clone() for p, t in _flat(model.params["flow_lm"])}
+    tuned, losses, ms, peak = _finetune_run(model, pairs, smi, lora_rank=8)
+    _require(all(torch.equal(snapshot[p], t) for p, t in _flat(model.params["flow_lm"])),
+             "train: LoRA fine-tune changed the base params")
+    factors, rank, alpha = tuned._lora
+    lora = tmp / "lora.safetensors"
+    save_lora_params(factors, lora, rank=rank, alpha=alpha)
+    got, r2, a2 = load_lora_params(lora)
+    _require((r2, a2) == (8, 8.0) and sorted(got) == sorted(factors) and all(
+        torch.equal(got[t][k], factors[t][k]) for t in factors for k in ("a", "b")),
+        "train: LoRA artifact round trip")
+    print(f"train: LoRA base params bit-unchanged; factor artifact {lora.stat().st_size / 2**20:.2f}"
+          f" MiB ({full.stat().st_size / 2**20:.1f} MiB full) round-trips bit for bit")
+    out["lora"] = {"losses": losses, "ms_per_step": ms, "peak_gib": peak}
+    out["paths"] = {"full": full, "lora": lora}
+    return out
+
+
+def _random_adapters(model, tmp: Path) -> dict:
+    """Two adapters with non-zero factors: rank 2 on every target, rank 3 on
+    in_proj and ff1 only; name -> path."""
+    from pocket_tts_tpu_torch.training import init_lora, save_lora_params
+
+    paths = {}
+    for name, rank, targets, seed in (("one", 2, None, 31), ("two", 3, ("tf/in_proj", "tf/ff1"), 32)):
+        kw = {"targets": targets} if targets else {}
+        factors = init_lora(model.params["flow_lm"], rank, seed=seed, **kw)
+        g = torch.Generator().manual_seed(seed)
+        for f in factors.values():
+            f["b"] = torch.randn(f["b"].shape, generator=g) * 0.02
+        paths[name] = tmp / f"{name}.lora.safetensors"
+        save_lora_params(factors, paths[name], rank=rank, alpha=float(rank))
+    return paths
+
+
+def _bank_exactness(model, paths: dict) -> None:
+    """(e) a full-width float32 B=4 batcher with the bank (the model's
+    weights): each lane against its merged single stream."""
+    from pocket_tts_tpu_torch import config
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.runtime.batcher import ContinuousBatcher
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+    from pocket_tts_tpu_torch.training import apply_adapted
+    from pocket_tts_tpu_torch.training.lora import build_adapter_bank
+    from pocket_tts_tpu_torch.tts import TTSModel
+
+    cfg = config.load_variant()
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime,
+                                                               compute_dtype="float32"))
+    gen = GenParams(temp=0.0, eos_threshold=float("inf"))
+    m32 = TTSModel(cfg, model.params, gen=gen, has_real_weights=False, device="cuda")
+    names = ["one", "two", None]
+    singles = []
+    for name, text in zip(names, ADAPTER_TEXTS):
+        m = m32 if name is None else apply_adapted(m32, paths[name])
+        m.gen = gen
+        singles.append(m.generate_with_pauses(text))
+        del m
+    b = ContinuousBatcher(m32, batch_size=4, chunk_frames=8,
+                          adapter_bank=build_adapter_bank({k: str(v) for k, v in paths.items()}))
+    b.start()
+    try:
+        launches, evals = fb.flow_blocks.launches, b.engine.flow_evals
+        results = b.generate_batch(list(ADAPTER_TEXTS), adapters=names)
+        launches, evals = fb.flow_blocks.launches - launches, b.engine.flow_evals - evals
+    finally:
+        b.stop()
+    _require(launches == evals > 0, f"bank f32: launches {launches} != evaluations {evals}")
+    worst = 0
+    for name, got, want in zip(names, results, singles):
+        _require(got.shape == want.shape, f"bank f32 {name}: {got.shape} vs {want.shape}")
+        worst = max(worst, int(np.abs(_pcm(got) - _pcm(want)).max()))
+    _require(worst <= REF_TOL_LSB, f"bank f32 lanes vs merged single streams: {worst} LSB")
+    apart = int(np.abs(_pcm(singles[0][:singles[2].size]) - _pcm(singles[2][:singles[0].size])).max())
+    print(f"train: bank f32 full width, B=4 chunk 8, lanes (one rank 2, two rank 3 on 2 "
+          f"targets, base) == their merged single streams within {worst} int16 LSB (bound "
+          f"{REF_TOL_LSB}; the adapters move the audio by {apart} LSB); {launches} flow_blocks "
+          f"launches = evaluations")
+    del m32, b
+    torch.cuda.empty_cache()
+
+
+def _bank_batch(model, paths: dict, smi: str) -> dict:
+    """(f) batched_tts(16, 64) on the bf16 model with and without the bank,
+    in turns, then with the bank on int8 + fp8 (launch counts checked)."""
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.runtime.batcher import batched_tts
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+    from pocket_tts_tpu_torch.training.lora import build_adapter_bank
+
+    bank = build_adapter_bank({k: str(v) for k, v in paths.items()})
+    texts = [ADAPTER_TEXTS[i % 3] for i in range(16)]
+    names = [(None, "one", "two")[i % 3] for i in range(16)]
+    model.gen = GenParams(temp=0.7, eos_threshold=float("inf"))
+    banked = batched_tts(model, batch_size=16, chunk_frames=64, adapter_bank=bank)
+    plain = batched_tts(model, batch_size=16, chunk_frames=64)
+    xrt = {"bank": [], "plain": []}
+    try:
+        for b in (banked, plain):
+            b.warmup()
+        for key in ("bank", "plain", "plain", "bank"):
+            b = banked if key == "bank" else plain
+            eng = b.engine
+            torch.cuda.synchronize()
+            fb.flow_blocks.launches = ql.qlinear.launches = eng.flow_evals = 0
+            t0 = time.perf_counter()
+            results = b.generate_batch(texts, adapters=names if key == "bank" else None)
+            wall = time.perf_counter() - t0
+            _require(fb.flow_blocks.launches == eng.flow_evals > 0,
+                     f"bank bf16 {key}: flow_blocks {fb.flow_blocks.launches} != "
+                     f"{eng.flow_evals}")
+            _require(ql.qlinear.launches == 0, "bank bf16: qlinear launched")
+            for text, audio in zip(texts, results):
+                _require(audio.size == _budget(model, text) * model.frame_size
+                         and bool(np.isfinite(audio).all()) and float(audio.std()) > 0,
+                         f"bank bf16 {key} {text!r}: bad audio")
+            xrt[key].append(sum(a.size for a in results) / model.sample_rate / wall)
+        launches = fb.flow_blocks.launches  # the last (bank) run's
+    finally:
+        banked.stop()
+        plain.stop()
+    print(f"train [{smi}]: batched_tts B=16 chunk 64 bf16, 16 requests (5 base / 6 one / 5 "
+          f"two) in turns bank, plain, plain, bank: aggregate x-realtime bank "
+          f"{', '.join(f'{v:.2f}' for v in xrt['bank'])}, plain (all base, no bank) "
+          f"{', '.join(f'{v:.2f}' for v in xrt['plain'])}; flow_blocks launches {launches} = "
+          f"evaluations")
+    return {"x_realtime": xrt, "flow_launches": launches}
+
+
+def _bank_quantized(q8fp8, paths: dict, smi: str) -> dict:
+    """(f) the bank on int8 + fp8: qlinear launches by the shape rule."""
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.runtime.batcher import batched_tts
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+    from pocket_tts_tpu_torch.training.lora import build_adapter_bank
+
+    bank = build_adapter_bank({k: str(v) for k, v in paths.items()})
+    texts = [ADAPTER_TEXTS[i % 3] for i in range(16)]
+    names = [(None, "one", "two")[i % 3] for i in range(16)]
+    q8fp8.gen = GenParams(temp=0.7, eos_threshold=float("inf"))
+    b = batched_tts(q8fp8, batch_size=16, chunk_frames=64, adapter_bank=bank)
+    try:
+        b.warmup()
+        eng = b.engine
+        expect = _ExpectedQlinear(eng)
+        torch.cuda.synchronize()
+        fb.flow_blocks.launches = ql.qlinear.launches = eng.flow_evals = 0
+        t0 = time.perf_counter()
+        results = b.generate_batch(texts, adapters=names)
+        wall = time.perf_counter() - t0
+        expect.close()
+        qn, fn_ = ql.qlinear.launches, fb.flow_blocks.launches
+    finally:
+        b.stop()
+    _require(fn_ == eng.flow_evals > 0, f"bank int8: flow_blocks {fn_} != {eng.flow_evals}")
+    _require(qn == expect.count > 0, f"bank int8: qlinear launches {qn} != {expect.count}")
+    for text, audio in zip(texts, results):
+        _require(audio.size == _budget(q8fp8, text) * q8fp8.frame_size
+                 and bool(np.isfinite(audio).all()), f"bank int8 {text!r}: bad audio")
+    secs = sum(a.size for a in results) / q8fp8.sample_rate
+    print(f"train [{smi}]: bank on int8 + fp8 e4m3, batched_tts B=16 chunk 64, 16 requests: "
+          f"aggregate x-realtime {secs / wall:.2f}; flow_blocks {fn_} = evaluations, qlinear "
+          f"{qn} = the shape rule's (the deltas are plain products beside the base's)")
+    return {"flow_launches": fn_, "qlinear_launches": qn}
+
+
+def _train_cli(model, tmp: Path) -> Path:
+    """(g) ``finetune --lora-rank 8`` and ``generate --finetuned`` as
+    subprocesses; returns the adapter they wrote."""
+    import wave as wave_mod
+
+    root = Path(__file__).resolve().parent
+    lines = []
+    for i, (text, wav) in enumerate(_train_pairs(24000)[:4]):
+        path = tmp / f"pair{i}.wav"
+        with wave_mod.open(str(path), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(24000)
+            f.writeframes((np.clip(wav, -1, 1) * 32767).astype("<i2").tobytes())
+        lines.append(json.dumps({"text": text, "audio": path.name}))
+    (tmp / "pairs.jsonl").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    adapter = tmp / "cli.lora.safetensors"
+    runs = [["finetune", "--manifest", str(tmp / "pairs.jsonl"), "-o", str(adapter),
+             "--lora-rank", "8", "--steps", "2", "--batch-size", "4", "--log-every", "1"],
+            ["generate", "--finetuned", str(adapter), "--eos-threshold", "inf", "--quiet",
+             "--text", TRAIN_TEXT, "-o", str(tmp / "ft.wav")]]
+    for args in runs:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "pocket_tts_tpu_torch.cli", *args,
+                              "--device", "cuda"], cwd=root, capture_output=True, text=True,
+                             timeout=600)
+        dt = time.perf_counter() - t0
+        _require(res.returncode == 0, f"cli {args[0]}: exit {res.returncode}\n{res.stderr[-3000:]}")
+        _require("device: cuda" in res.stderr, f"cli {args[0]}: no cuda device line")
+        said = [ln for ln in res.stderr.splitlines() if "wrote" in ln or "realtime" in ln]
+        print(f"train: cli {args[0]} --device cuda: exit 0 in {dt:.1f} s; "
+              f"{said[-1].strip() if said else ''}")
+    with wave.open(str(tmp / "ft.wav"), "rb") as f:
+        got = f.getnframes()
+    want = _budget(model, TRAIN_TEXT) * model.frame_size
+    _require(got == want, f"cli generate --finetuned: {got} samples != {want}")
+    return adapter
+
+
+async def _serve_adapters(state, model, budgets: dict) -> int:
+    """(g) the bankable adapter on the batcher, the full fine-tune on its
+    merged model; returns how many requests rode the batcher."""
+    from pocket_tts_tpu_torch.server import app
+
+    subs = _Submissions(state.batcher)
+    try:
+        async with state.lock:  # the single stream is busy: "lora" rides the batcher
+            wav = await app.generate_wav(state, {"text": TRAIN_TEXT, "adapter": "lora"})
+        _require(_wav_samples(wav).size == budgets[TRAIN_TEXT] * model.frame_size,
+                 "serve adapter lora: wrong length")
+        riders = len(subs.texts)
+        wav = await app.generate_wav(state, {"text": VOICE_TEXT, "adapter": "full"})
+        _require(_wav_samples(wav).size == budgets[VOICE_TEXT] * model.frame_size,
+                 "serve adapter full: wrong length")
+        chunks = await app.open_stream(state, {"text": VOICE_TEXT, "adapter": "full"})
+        pcm = b"".join([c async for c in chunks])
+        _require(len(pcm) == 2 * budgets[VOICE_TEXT] * model.frame_size,
+                 "serve adapter full stream: wrong length")
+    finally:
+        subs.close()
+    _require(riders == 1 and len(subs.texts) == 1,
+             f"serve adapters: {subs.texts} rode the batcher (want the lora request only)")
+    return riders
+
+
+def phase_train(model, q8fp8, smi: str) -> dict:
+    """Phase 10: fine-tuning and per-slot LoRA on the card, full width."""
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+    from pocket_tts_tpu_torch.server import app
+
+    t_phase = time.perf_counter()
+    marks = []
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    out = {"card_vs_cpu": _train_card_vs_cpu(model)}
+    _train_guard(torch.device("cuda"))
+    mark("a-b")
+    out.update(_train_finetunes(model, tmp, smi))
+    mark("c-d")
+    paths = _random_adapters(model, tmp)
+    _bank_exactness(model, paths)
+    mark("e")
+    out["bank"] = _bank_batch(model, paths, smi)
+    out["bank_quantized"] = _bank_quantized(q8fp8, paths, smi)
+    mark("f")
+    cli_adapter = _train_cli(model, tmp)
+    mark("g cli")
+
+    model.gen = GenParams(temp=0.7, eos_threshold=float("inf"))
+    budgets = {t: _budget(model, t) for t in (TRAIN_TEXT, VOICE_TEXT)}
+    state = app.build_state(model, batch_size=16, adapters={
+        "lora": str(cli_adapter), "full": str(out["paths"]["full"])})
+    try:
+        _require(state.bankable == frozenset({"lora"}), f"serve adapters: {state.bankable}")
+        riders = asyncio.run(_serve_adapters(state, model, budgets))
+    finally:
+        state.batcher.stop()
+        state.pool.shutdown()
+    print(f"train: request layer with adapters lora (bankable, {riders} request on the batcher) "
+          f"and full (merged LRU: /generate and /stream): bodies of their budgets' lengths")
+    tmp_dir.cleanup()
+    mark("g serve")
+    t, parts = t_phase, []
+    for name, at in marks:
+        parts.append(f"{name} {at - t:.1f}")
+        t = at
+    print(f"train: phase took {time.perf_counter() - t_phase:.1f} s ({', '.join(parts)} s)")
+    return out
+
+
+def _qlinear_entry(narrow: dict, serve: dict, train: dict) -> dict:
     """The kernels line's qlinear entry: the main-path numbers at B = 1 on ff1
     (int8, 4096 x 1024, bf16 x), and every timed shape cold and warm."""
     times = narrow["times"]
@@ -1875,6 +2353,9 @@ def _qlinear_entry(narrow: dict, serve: dict) -> dict:
         "launches_batch": narrow["batch"]["qlinear_launches"],
         "launches_fp8_voice": narrow["voice"]["qlinear_launches"],
         "launches_serve": serve["qlinear_launches"],
+        "launches_train_generate": 0,  # the tuned bf16 model (checked in phase 10)
+        "launches_adapters": 0,  # the bank on the bf16 model (checked in phase 10)
+        "launches_adapters_quantized": train["bank_quantized"]["qlinear_launches"],
         "max_abs_err_over_tol": narrow["kernel"]["worst_err_over_tol"],
         "max_abs_err": narrow["kernel"]["max_abs_err"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -1898,6 +2379,7 @@ def main() -> None:
     batch_launches = phase_batch(model)
     narrow, q8fp8 = phase_narrow(model, dev)
     serve = phase_serve(model, q8fp8, smi)
+    train = phase_train(model, q8fp8, smi)
     per_b = {key: {str(b): kern[b][key] for b in TIMED_BATCHES}
              for key in ("device_us_cold", "device_us_warm", "bound_us", "roofline_share",
                          "graph_plain_us", "graph_plain_us_warm")}
@@ -1909,6 +2391,9 @@ def main() -> None:
         "launches_batch": batch_launches,
         "launches_serve": serve["flow_launches"],
         "launches_serve_quantized": serve["flow_launches_quantized"],
+        "launches_train_generate": train["full"]["generate_launches"],
+        "launches_adapters": train["bank"]["flow_launches"],
+        "launches_adapters_quantized": train["bank_quantized"]["flow_launches"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern[1]["ms"], "plain_ms": kern[1]["plain_ms"],
         "bound_ms": kern[1]["bound_us"] / 1e3, "bound_by": kern[1]["bound_by"],
@@ -1916,7 +2401,7 @@ def main() -> None:
         "ms_b4": kern[4]["ms"], "plain_ms_b4": kern[4]["plain_ms"],
         "ms_b16": kern[16]["ms"], "plain_ms_b16": kern[16]["plain_ms"],
         **per_b,
-    }, _qlinear_entry(narrow, serve)]}))
+    }, _qlinear_entry(narrow, serve, train)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

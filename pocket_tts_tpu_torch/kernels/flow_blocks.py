@@ -237,6 +237,10 @@ def flow_blocks(sy: torch.Tensor, h0: torch.Tensor, blocks: dict) -> torch.Tenso
         return flow_blocks_reference(sy, h0, blocks)
     if sy.device.type != "cuda":
         raise ValueError(f"flow_blocks: unsupported device {sy.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (sy, h0, *blocks.values())):
+        # the launch goes through raw pointers: its output has no grad_fn
+        raise RuntimeError("flow_blocks: the CUDA kernel has no backward; under autograd call "
+                           "the plain chain, kernels.flow_blocks.flow_blocks_reference")
     batch, dim, depth = _check(sy, h0, blocks)
     lib = _load()
     plan = _plan_for(batch, dim, depth, sy.device, lib)

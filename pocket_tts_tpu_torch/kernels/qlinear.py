@@ -191,6 +191,11 @@ def qlinear(x: torch.Tensor, w: QTensor, b: torch.Tensor | None = None) -> torch
         return qlinear_reference(x, w, b)
     if x.device.type != "cuda":
         raise ValueError(f"qlinear: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, w.q, w.scale, b)):
+        # the launch goes through raw pointers: its output has no grad_fn
+        raise RuntimeError("qlinear: the CUDA kernel has no backward; under autograd call "
+                           "the plain product, kernels.qlinear.qlinear_reference")
     w2 = as_matrix(w)
     n, k = w2.shape
     if x.shape[-1] != k:

@@ -72,23 +72,27 @@ def embed_text(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(params: dict, cfg: Config, k_cache: torch.Tensor, v_cache: torch.Tensor,
-            pos: torch.Tensor, embeddings: torch.Tensor, t_valid: torch.Tensor):
+            pos: torch.Tensor, embeddings: torch.Tensor, t_valid: torch.Tensor,
+            lora: dict | None = None, lora_w: torch.Tensor | None = None):
     """Feed conditioning embeddings [B, T, d_model] through the backbone,
-    filling the KV cache in place.  Returns (k_cache, v_cache, new_pos)."""
+    filling the KV cache in place.  Returns (k_cache, v_cache, new_pos).
+    ``lora`` / ``lora_w``: the per-slot adapter bank
+    (``transformer.cache_forward``)."""
     tcfg = cfg.flow_lm.transformer
     t = embeddings.shape[1]
     positions = pos[:, None] + torch.arange(t, dtype=pos.dtype, device=pos.device)[None, :]
     cos, sin = rope_table(positions, tcfg.head_dim, tcfg.max_period)
     _, k_cache, v_cache = transformer.cache_forward(
         params["tf"], tcfg.num_heads, k_cache, v_cache, pos, embeddings,
-        cos[:, :, None, :], sin[:, :, None, :], t_valid=t_valid)
+        cos[:, :, None, :], sin[:, :, None, :], t_valid=t_valid, lora=lora, lora_w=lora_w)
     return k_cache, v_cache, pos + t_valid.to(pos.dtype)
 
 
 def step(params: dict, cfg: Config, k_cache: torch.Tensor, v_cache: torch.Tensor,
          pos: torch.Tensor, latent: torch.Tensor, noise: torch.Tensor,
          t_emb_table: torch.Tensor, lsd_decode_steps: int,
-         lsd_vec: torch.Tensor | None = None):
+         lsd_vec: torch.Tensor | None = None, lora: dict | None = None,
+         lora_w: torch.Tensor | None = None):
     """One autoregressive frame.  ``latent`` [B, ldim] is the previous latent
     (``bos_emb`` on the first step), ``noise`` [B, ldim] pre-sampled.
     Returns (next_latent, eos_logit [B], k_cache, v_cache, pos + 1); the cache
@@ -96,13 +100,14 @@ def step(params: dict, cfg: Config, k_cache: torch.Tensor, v_cache: torch.Tensor
 
     ``lsd_vec`` ([B] int, batched serving): per-slot LSD step counts, with
     ``lsd_decode_steps`` their ceiling and ``t_emb_table`` [ceiling, B, dim];
-    the flow decode is then ``flow_mlp.lsd_decode_masked``."""
+    the flow decode is then ``flow_mlp.lsd_decode_masked``.  ``lora`` /
+    ``lora_w``: the per-slot adapter bank (``transformer.cache_forward``)."""
     tcfg = cfg.flow_lm.transformer
     x = linear(latent, params["input_w"])[:, None, :]  # [B, 1, D]
     cos, sin = rope_table(pos[:, None], tcfg.head_dim, tcfg.max_period)
     y, k_cache, v_cache = transformer.cache_forward(
         params["tf"], tcfg.num_heads, k_cache, v_cache, pos, x,
-        cos[:, :, None, :], sin[:, :, None, :])
+        cos[:, :, None, :], sin[:, :, None, :], lora=lora, lora_w=lora_w)
     h = layer_norm(y[:, -1], params["out_norm_w"], params["out_norm_b"], eps=1e-5).float()
     eos_logit = h @ params["out_eos_w"][0] + params["out_eos_b"][0]
     cond_emb = flow_mlp.embed_condition(params["flow"], h)

@@ -59,11 +59,13 @@ def embed_condition(params: dict, cond: torch.Tensor) -> torch.Tensor:
     return linear(cond, params["cond_w"], params["cond_b"])
 
 
-def flow_step(params: dict, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """One flow evaluation v = f(y, x): x [B, ldim], y [B, dim] (time + cond)."""
+def flow_step(params: dict, y: torch.Tensor, x: torch.Tensor, chain=flow_blocks) -> torch.Tensor:
+    """One flow evaluation v = f(y, x): x [B, ldim], y [B, dim] (time + cond).
+    ``chain`` runs the ResBlocks: the kernel's wrapper, or (under autograd,
+    as the training loss) ``kernels.flow_blocks.flow_blocks_reference``."""
     h0 = linear(x, params["in_w"], params["in_b"])
     sy = F.silu(y)
-    h = flow_blocks(sy.contiguous(), h0.contiguous(), params["blocks"])
+    h = chain(sy.contiguous(), h0.contiguous(), params["blocks"])
     mod = linear(sy, params["final_ada_w"], params["final_ada_b"])
     shift, scale = mod.chunk(2, dim=-1)
     z = layer_norm(h, None, None, eps=1e-6)

@@ -5,6 +5,9 @@ Pre-LN self-attention + exact-GELU FFN with bias-free linears; LayerScale
 (``ls1``/``ls2``) only where the parameters carry it (Mimi).  Parameters are a
 dict of tensors stacked on a leading layer axis; ``in_proj`` is ``[L, 3, E, E]``.
 A weight may be a ``QTensor``: its linears run through ``kernels.qlinear``.
+``cache_forward`` optionally mixes per-slot LoRA deltas into the four
+backbone products (``lora`` / ``lora_w``, the adapter bank of
+``runtime.engine.Engine.set_adapter_bank``), beside the base product.
 
 * ``cache_forward`` — causal over a dense KV cache (FlowLM backbone).  The
   cache is ``[L, B, S, H, D]`` and is updated in place.
@@ -36,7 +39,31 @@ def _layer(params: dict, i: int) -> dict:
     return {k: v[i] for k, v in params.items()}
 
 
-def _qkv(p_layer: dict, x: torch.Tensor, n_heads: int, cos, sin):
+def _lora_pair(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
+               qkv: bool = False) -> torch.Tensor:
+    """Per-slot mixed low-rank delta ``sum_n w[:, n] * (x @ A_n^T) @ B_n^T``.
+
+    ``x`` [B, T, in]; ``a`` [N, (3,) r, in] / ``b`` [N, (3,) out, r]: one
+    layer's stacked adapter factors (``qkv`` adds in_proj's axis of 3);
+    ``w`` [B, N] per-slot rows (one-hot x alpha/rank; a zero row is the base
+    model).  In float32, as the offline merge (``training.lora.merge_lora``),
+    so a lane tracks its merged single stream."""
+    sub = "k" if qkv else ""
+    u = torch.einsum(f"bti,n{sub}ri->btn{sub}r", x.float(), a.float())
+    u = u * w.reshape(w.shape[0], 1, w.shape[1], *([1] * (u.dim() - 3)))
+    return torch.einsum(f"btn{sub}r,n{sub}or->bt{sub}o", u, b.float())
+
+
+def _add_lora(y: torch.Tensor, x: torch.Tensor, lora: dict | None, lora_w, name: str,
+              qkv: bool = False) -> torch.Tensor:
+    """``y`` plus the ``name`` target's delta on ``x`` when the bank has one."""
+    if lora is None or name not in lora:
+        return y
+    delta = _lora_pair(x, lora[name]["a"], lora[name]["b"], lora_w, qkv)
+    return y + delta.reshape(y.shape).to(y.dtype)
+
+
+def _qkv(p_layer: dict, x: torch.Tensor, n_heads: int, cos, sin, lora=None, lora_w=None):
     b, t, e = x.shape
     d = e // n_heads
     xn = layer_norm(x, p_layer["norm1_w"], p_layer["norm1_b"], eps=1e-5)
@@ -45,21 +72,25 @@ def _qkv(p_layer: dict, x: torch.Tensor, n_heads: int, cos, sin):
         proj = qlinear(xn, w)  # one [3E, E] product
     else:
         proj = torch.einsum("bte,kpe->btkp", xn.to(w.dtype), w)
+    proj = _add_lora(proj, xn, lora, lora_w, "in_proj", qkv=True)
     proj = proj.reshape(b, t, 3, n_heads, d)
     q, k, v = proj[:, :, 0], proj[:, :, 1], proj[:, :, 2]
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _post_attn(p_layer: dict, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+def _post_attn(p_layer: dict, x: torch.Tensor, attn: torch.Tensor, lora=None,
+               lora_w=None) -> torch.Tensor:
     b, t = x.shape[:2]
     attn_flat = attn.reshape(b, t, -1)
-    update = linear(attn_flat, p_layer["out_proj"])
+    update = _add_lora(linear(attn_flat, p_layer["out_proj"]), attn_flat, lora, lora_w,
+                       "out_proj")
     if "ls1" in p_layer:
         update = update * p_layer["ls1"].to(update.dtype)
     x = x + update
     xn = layer_norm(x, p_layer["norm2_w"], p_layer["norm2_b"], eps=1e-5)
-    h = F.gelu(linear(xn, p_layer["ff1"]), approximate="none")
-    update = linear(h, p_layer["ff2"])
+    h = F.gelu(_add_lora(linear(xn, p_layer["ff1"]), xn, lora, lora_w, "ff1"),
+               approximate="none")
+    update = _add_lora(linear(h, p_layer["ff2"]), h, lora, lora_w, "ff2")
     if "ls2" in p_layer:
         update = update * p_layer["ls2"].to(update.dtype)
     return x + update
@@ -67,14 +98,19 @@ def _post_attn(p_layer: dict, x: torch.Tensor, attn: torch.Tensor) -> torch.Tens
 
 def cache_forward(params: dict, n_heads: int, k_cache: torch.Tensor, v_cache: torch.Tensor,
                   pos: torch.Tensor, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                  t_valid: torch.Tensor | None = None):
+                  t_valid: torch.Tensor | None = None, lora: dict | None = None,
+                  lora_w: torch.Tensor | None = None):
     """Dense-cache causal transformer step over ``x`` [B, T, E] at positions
     ``pos + i``.  ``k_cache``/``v_cache`` [L, B, S, H, D] (or a view of their
     first S positions) are written in place; returns (y, k_cache, v_cache).
-    ``t_valid`` [B]: prefill widths (positions past them are not written)."""
+    ``t_valid`` [B]: prefill widths (positions past them are not written).
+    ``lora`` ({target: {"a": [L, N, (3,) r, in], "b": [L, N, (3,) out, r]}})
+    and ``lora_w`` [B, N]: per-slot adapter deltas (:func:`_lora_pair`)."""
     for i in range(k_cache.shape[0]):
         p_layer = _layer(params, i)
-        q, k, v = _qkv(p_layer, x, n_heads, cos, sin)
+        lo = None if lora is None else {k: {"a": f["a"][i], "b": f["b"][i]}
+                                        for k, f in lora.items()}
+        q, k, v = _qkv(p_layer, x, n_heads, cos, sin, lo, lora_w)
         if t_valid is None:
             cache_write(k_cache[i], k, pos)
             cache_write(v_cache[i], v, pos)
@@ -82,7 +118,7 @@ def cache_forward(params: dict, n_heads: int, k_cache: torch.Tensor, v_cache: to
             prefill_write(k_cache[i], k, pos, t_valid)
             prefill_write(v_cache[i], v, pos, t_valid)
         attn = causal_cache_attention(q, k_cache[i], v_cache[i], pos)
-        x = _post_attn(p_layer, x, attn)
+        x = _post_attn(p_layer, x, attn, lo, lora_w)
     return x, k_cache, v_cache
 
 

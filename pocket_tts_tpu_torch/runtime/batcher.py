@@ -1,5 +1,5 @@
 """Continuous-batched serving: one decode loop, many concurrent requests (port
-of ``pocket_tts_tpu/runtime/batcher.py``, without the adapter bank).
+of ``pocket_tts_tpu/runtime/batcher.py``).
 
 A B-slot generation state stays resident and ONE decode loop runs chunks over
 all slots, admitting and retiring requests between chunks:
@@ -14,6 +14,10 @@ all slots, admitting and retiring requests between chunks:
 * Per-slot temperature / EOS-threshold vectors, and per-slot LSD step counts
   and noise clamps as data (masked Euler steps); EOS and frame budgets are
   tracked on the host; retired slots keep computing garbage until reused.
+* Per-slot LoRA (``adapter_bank``): a request may name an adapter of the
+  bank; its lane's prefill and decode mix that adapter's delta in, while
+  other lanes serve other adapters or the base model.  Decodes take the
+  adapter path only while an adapter request is resident.
 * Streaming arrivals get bounded time to first audio: priority admission, a
   warm-chunk ramp at pipeline depth 0-1, preemption of segments that have
   emitted nothing at full occupancy, and a saturation guard that drops the
@@ -92,6 +96,9 @@ class _Request:
     gen: GenParams
     out: queue.Queue
     latency_sensitive: bool = False  # streaming consumer (vs whole-WAV)
+    # [N] adapter-bank row (None = the base model): the request's text
+    # prefills and decode run through that adapter's delta on its lane
+    lora_row: np.ndarray | None = None
     segments: list = dataclasses.field(default_factory=list)
     emitted_upto: int = 0  # next segment index to stream out
     finished: bool = False
@@ -127,18 +134,12 @@ class _Slot:
         return self.segment is None
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: per-slot LoRA adapters are not ported yet")
-
-
 class ContinuousBatcher:
     """Owns a batched Engine and a background decode thread."""
 
     def __init__(self, model: TTSModel, batch_size: int = 4,
                  chunk_frames: int = 8, seed: int = 0, depth: int = 2,
                  warm_chunk: int | None = None, adapter_bank=None):
-        if adapter_bank is not None:
-            raise _not_ported("adapter_bank")
         self.model = model
         self.batch = batch_size
         self.chunk = chunk_frames
@@ -164,6 +165,10 @@ class ContinuousBatcher:
         # shares the model engine's placed parameters (no second device copy)
         self.engine = Engine(model.config, model.engine.params, model.device,
                              batch_size=batch_size)
+        # training.lora.AdapterBank: requests carry per-slot rows of it
+        self.bank = adapter_bank
+        if adapter_bank is not None:
+            self.engine.set_adapter_bank(adapter_bank)
         self.tokenizer = model.tokenizer
         dev = self.engine.device
         self._generator = torch.Generator(device=dev).manual_seed(seed ^ 0x5EED)
@@ -206,7 +211,16 @@ class ContinuousBatcher:
         _, audio, _ = engine.decode_frames(
             state, self.warm_chunk, gen, generator, temps=temps, eos_thresholds=eos_th,
             lsd_vec=np.full((self.batch,), 2), clamp_vec=np.full((self.batch,), -1.0))
-        for a in audios + [audio]:
+        audios.append(audio)
+        if self.bank is not None:  # the adapter path's admission and decode
+            zero = np.zeros(self.bank.n, np.float32)
+            state = engine.admit_prefill_slot(state, 0, self.model.get_voice_state().as_dict(),
+                                              row, 1, lora_row=zero)
+            _, audio, _ = engine.decode_frames(state, self.warm_chunk, gen, generator,
+                                               temps=temps, eos_thresholds=eos_th,
+                                               lora_w=np.zeros((self.batch, self.bank.n)))
+            audios.append(audio)
+        for a in audios:
             a.cpu()
 
     def idle(self) -> bool:
@@ -270,19 +284,28 @@ class ContinuousBatcher:
         gives the request's first text segment the warm-chunk admission ramp;
         ``False`` (whole-WAV consumers) optimizes completion time only.
         ``frames_after_eos``: extra frames past EOS for every text segment;
-        None derives it per sentence from the text length.  ``adapter`` is
-        not ported and raises."""
-        if adapter is not None:
-            raise _not_ported(f"adapter={adapter!r}")
+        None derives it per sentence from the text length.
+
+        ``adapter``: a name in the batcher's ``AdapterBank``; this request's
+        prefill and decode run through that adapter on its lane.  Its voice
+        state should come from the same adapter's merged model (a voice state
+        is a prefill through the backbone).  A name the bank lacks raises
+        KeyError; any adapter on a batcher without a bank raises ValueError."""
         if not text or not text.strip():
             raise ValueError("Text prompt cannot be empty")
         if self._dead:
             raise RuntimeError("batcher decode loop has crashed; restart it")
+        lora_row = None
+        if adapter is not None:
+            if self.bank is None:
+                raise ValueError(f"adapter {adapter!r} requested but this batcher has no "
+                                 "adapter bank")
+            lora_row = self.bank.row(adapter)  # KeyError for an unknown name
         if voice is None:
             voice = self.model.get_voice_state()
         gen = gen or self.model.gen
         req = _Request(voice=voice, gen=gen, out=queue.Queue(),
-                       latency_sensitive=latency_sensitive)
+                       latency_sensitive=latency_sensitive, lora_row=lora_row)
         req.out._pocket_request = req  # lets stream() cancel on disconnect
 
         if pauses:
@@ -436,10 +459,9 @@ class ContinuousBatcher:
         ``on_result(index, audio_or_exception)`` fires as each item finishes,
         in input order, from the calling thread.  ``collect=False`` drops
         each item's audio right after its ``on_result`` call (its slot in the
-        returned list is None; exceptions are still recorded).  ``adapters``
-        is not ported and raises."""
-        if adapters is not None:
-            raise _not_ported("adapters=")
+        returned list is None; exceptions are still recorded).  ``adapters``:
+        per-item ``AdapterBank`` names, given as ``voices`` are; items with
+        different adapters decode together in one loop."""
         texts = list(texts)
         n = len(texts)
 
@@ -452,6 +474,7 @@ class ContinuousBatcher:
 
         voices = per_item(voices, "voices")
         gens = per_item(gens, "gens")
+        adapters = per_item(adapters, "adapters")
 
         outs: list[queue.Queue | None] = [None] * n
         results: list = [None] * n
@@ -460,7 +483,8 @@ class ContinuousBatcher:
                 try:
                     outs[i] = self.submit(texts[i], voices[i], gens[i], pauses=pauses,
                                           latency_sensitive=False,
-                                          frames_after_eos=frames_after_eos)
+                                          frames_after_eos=frames_after_eos,
+                                          adapter=adapters[i])
                 except Exception as e:  # noqa: BLE001
                     if not return_exceptions:
                         raise
@@ -544,7 +568,9 @@ class ContinuousBatcher:
         # unclamped; 0 is a hard zero-clamp, so None must NOT be encoded as 0)
         lsd = np.ones((self.batch,), np.int32)
         clamp = np.full((self.batch,), -1.0, np.float32)
-        vecs = None        # device copies of temps / eos thresholds
+        # [B, N] per-slot adapter rows (bank mode); a free lane's row is zero
+        low = np.zeros((self.batch, self.bank.n), np.float32) if self.bank is not None else None
+        vecs = None        # device copies of temps / eos thresholds / adapter rows
         vecs_dirty = True  # re-uploaded only when slot occupancy changes
         waiting: list[_Segment] = []  # decode-thread-only admission queue
         pending: list = []  # in-flight (owners, k, host outputs, event) to fetch
@@ -609,7 +635,10 @@ class ContinuousBatcher:
                     break
                 slot = slots[i]
                 state = engine.admit_prefill_slot(state, i, seg.request.voice.as_dict(),
-                                                  seg.d_tokens, seg.n_tokens)
+                                                  seg.d_tokens, seg.n_tokens,
+                                                  lora_row=seg.request.lora_row)
+                if low is not None:
+                    low[i] = 0.0 if seg.request.lora_row is None else seg.request.lora_row
                 slot.segment = seg
                 slot.dispatched = 0
                 seg.frames_routed = 0   # fresh start (preemption re-queues)
@@ -641,10 +670,17 @@ class ContinuousBatcher:
                 if s.free:
                     lsd[i] = 1
                     clamp[i] = -1.0
+                    if low is not None:
+                        low[i] = 0.0
             if vecs_dirty or vecs is None:
-                vecs = (engine.put(temps, torch.float32), engine.put(eos_th, torch.float32))
+                vecs = (engine.put(temps, torch.float32), engine.put(eos_th, torch.float32),
+                        None if low is None else engine.put(low, torch.float32))
                 vecs_dirty = False
-            d_temps, d_eos = vecs
+            d_temps, d_eos, d_low = vecs
+            # the adapter path only while an adapter request is resident: a
+            # zero row is an exact no-op, so base lanes match either way
+            lora_on = low is not None and any(
+                s.segment is not None and s.segment.request.lora_row is not None for s in slots)
             # Batches where every active slot has the model defaults (nobody
             # overrides lsd / noise_clamp) take the plain decode: the per-slot
             # path pays for masked steps and a second noise draw
@@ -654,6 +690,8 @@ class ContinuousBatcher:
             default_only = all((int(lsd[i]), float(clamp[i])) == base
                                for i, s in enumerate(slots) if not s.free)
             vec = {} if default_only else {"lsd_vec": lsd.copy(), "clamp_vec": clamp.copy()}
+            if lora_on:
+                vec["lora_w"] = d_low
             state, audio, is_eos = engine.decode_frames(
                 state, k, gen, self._generator, temps=d_temps, eos_thresholds=d_eos, **vec)
             host, event = self._to_host(audio, is_eos)

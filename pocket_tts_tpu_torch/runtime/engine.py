@@ -18,6 +18,9 @@
 * Voice prompts go through the Mimi encoder and the speaker projection
   (``encode_voice``) and are prefilled as conditioning
   (``prefill_conditioning``), unpadded.
+* Per-slot LoRA (``set_adapter_bank``): ``decode_frames(lora_w=)`` and
+  ``admit_prefill_slot(lora_row=)`` mix each lane's adapter delta into the
+  backbone products; without them the plain path runs.
 * Narrow storage: int8 / int4 ``QTensor`` weights (scales cast to each
   leaf's dtype, ``q`` never), an fp8 KV cache (``kv_dtype``), and the mu-law
   wire (``transport_format="mulaw"``: encoded on the device, decoded on the
@@ -160,6 +163,23 @@ class Engine:
         self.frames_decoded = 0
         self.flow_evals = 0
         self._fresh_mimi1 = None  # read-only fresh B = 1 codec state (admission)
+        self.adapter_bank = None  # set_adapter_bank
+        self._lora_stacks = None
+
+    def set_adapter_bank(self, bank) -> None:
+        """Attach a ``training.lora.AdapterBank``: its stacked factors are
+        placed once on the device in float32.  Dispatches opt in with a
+        per-slot row (``decode_frames(lora_w=)``, ``admit_prefill_slot(
+        lora_row=)``); those without one keep the plain path."""
+        self.adapter_bank = bank
+        self._lora_stacks = {k: {n: torch.as_tensor(t).to(self.device, torch.float32)
+                                 for n, t in f.items()} for k, f in bank.stacks.items()}
+
+    def _lora(self, rows, what: str):
+        """(stacks, rows [B, N] on the device) for a dispatch with adapter rows."""
+        if self._lora_stacks is None:
+            raise ValueError(f"{what} requires set_adapter_bank() first")
+        return self._lora_stacks, self.put(rows, torch.float32)
 
     # -- state -------------------------------------------------------------
 
@@ -232,17 +252,22 @@ class Engine:
         return padded.pin_memory() if self.device.type == "cuda" else padded
 
     def admit_prefill_slot(self, state: dict, slot: int, voice_state: dict,
-                           tokens_row: torch.Tensor, n_tokens: int) -> dict:
+                           tokens_row: torch.Tensor, n_tokens: int,
+                           lora_row: np.ndarray | None = None) -> dict:
         """``admit_slot`` plus this lane's text prefill at B = 1, on the
         lane's view of the batched cache (the prefill writes through the view
-        into the shared buffer).  ``tokens_row``: from ``pad_token_row``."""
+        into the shared buffer).  ``tokens_row``: from ``pad_token_row``.
+        ``lora_row`` [N]: the lane's adapter row (its prefill runs through
+        that adapter; needs ``set_adapter_bank``)."""
+        lora, lora_w = (None, None) if lora_row is None else self._lora(
+            np.asarray(lora_row, np.float32).reshape(1, -1), "lora_row")
         state = self.admit_slot(state, slot, voice_state)
         lane = slice(slot, slot + 1)
         params = self.params["flow_lm"]
         emb = flow_lm.embed_text(params, tokens_row.to(self.device, non_blocking=True))
         t_valid = torch.full((1,), n_tokens, dtype=torch.int32, device=self.device)
         _, _, pos = flow_lm.prefill(params, self.cfg, state["kc"][:, lane], state["vc"][:, lane],
-                                    state["pos"][lane], emb, t_valid)
+                                    state["pos"][lane], emb, t_valid, lora, lora_w)
         state["pos"][lane].copy_(pos)
         return state
 
@@ -252,7 +277,10 @@ class Engine:
                        n_valid: int | np.ndarray | list) -> dict:
         """Prefill ``tokens`` [B, n] (right-padded to a text bucket).
         ``n_valid`` is one count for every lane or a per-lane [B] vector; a
-        lane with 0 valid tokens writes nothing and keeps its position."""
+        lane with 0 valid tokens writes nothing and keeps its position.
+        Adapter rows never reach this prefill: a batched adapter request
+        prefills through ``admit_prefill_slot``, and a voice state for one
+        through the adapter's merged model."""
         b = tokens.shape[0]
         bucket = _bucket(tokens.shape[1], self._rcfg.text_buckets)
         padded = np.zeros((b, bucket), np.int32)
@@ -359,7 +387,7 @@ class Engine:
     def decode_frames(self, state: dict, n_frames: int, gen: GenParams,
                       generator: torch.Generator, *, temps=None, eos_thresholds=None,
                       lsd_vec: np.ndarray | None = None, clamp_vec=None,
-                      ) -> tuple[dict, torch.Tensor, torch.Tensor]:
+                      lora_w=None) -> tuple[dict, torch.Tensor, torch.Tensor]:
         """K = ``n_frames`` autoregressive frames + one grouped codec decode.
 
         Every frame attends over the whole cache (masked past ``pos``), so a
@@ -371,9 +399,12 @@ class Engine:
         arrays or device tensors) in place of ``gen``'s.  ``lsd_vec`` (host
         [B] ints, each >= 1) / ``clamp_vec`` ([B]; < 0 unclamped, 0 a hard
         zero): per-slot step counts and noise clamps, run as masked Euler
-        steps up to the batch maximum (the output does not depend on it)."""
+        steps up to the batch maximum (the output does not depend on it).
+        ``lora_w`` [B, N]: per-slot adapter rows (needs ``set_adapter_bank``;
+        a zero row is the base model)."""
         params = self.params["flow_lm"]
         b = state["pos"].shape[0]
+        lora, lora_w = (None, None) if lora_w is None else self._lora(lora_w, "lora_w")
         temp = gen.temp if temps is None else self.put(temps, torch.float32)
         eos_th = (gen.eos_threshold if eos_thresholds is None
                   else self.put(eos_thresholds, torch.float32)[:, None])
@@ -400,7 +431,8 @@ class Engine:
             noise = flow_lm.sample_noise(generator, (b, self.ldim), temp, clamp, self.device,
                                          clamped=clamped)
             latent, eos_logit, _, _, pos = flow_lm.step(
-                params, self.cfg, kc, vc, pos, latent, noise, table, steps, lsd_vec=lsd_t)
+                params, self.cfg, kc, vc, pos, latent, noise, table, steps, lsd_vec=lsd_t,
+                lora=lora, lora_w=lora_w)
             latents.append(latent)
             eos_logits.append(eos_logit)
         denorm = flow_lm.denormalize(params, torch.stack(latents, dim=1))  # [B, K, ldim]

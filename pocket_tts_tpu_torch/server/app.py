@@ -3,11 +3,11 @@ package's wire API:
 
   GET  /                  -> the web player (``pocket_tts_tpu/server/webui.html``)
   GET  /health            -> {"status": "ok", "model", "uptime_s", "real_weights",
-                              "batcher"?}
+                              "adapters"?, "batcher"?}
   GET  /metrics           -> Prometheus text of the batcher's counters
   POST /generate          -> whole WAV     {text, voice?, temperature?, lsd_steps?,
                                             eos_threshold?, noise_clamp?,
-                                            continuation_frames?}
+                                            continuation_frames?, adapter?}
   POST /stream            -> chunked raw s16le PCM (same body)
   POST /tts               -> form (text, voice_url | voice_wav, compat?) or JSON
                              -> WAV; ``compat=python`` streams a WAV instead
@@ -22,7 +22,11 @@ of it, and import aiohttp when they are called.
 
 Routing: concurrent traffic rides the continuous batcher when there is one;
 a lone request, or one with ``continuation_frames``, runs on the
-single-stream engine under ``ServerState.lock``.  Blocking work (voice
+single-stream engine under ``ServerState.lock``.  Adapters (``adapters``:
+name -> fine-tuned checkpoint or LoRA artifact) are selected per request:
+those in the batcher's adapter bank ride it as per-slot rows, the rest run
+on their merged model (``ServerState.adapted``, an LRU), whose voice states
+are cached per adapter (a voice state is a prefill through the backbone).  Blocking work (voice
 resolution, which may run the Mimi encoder, and synthesis) runs in
 ``ServerState.pool``, with autograd off and on the CUDA stream that was
 current where the state was built, which is the stream the batcher's decode
@@ -34,6 +38,7 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import collections
 import concurrent.futures
 import contextlib
 import logging
@@ -67,19 +72,34 @@ class RequestError(Exception):
         self.message = message
 
 
+class AdapterError(ValueError):
+    """An unknown adapter name, or one whose artifact fails to load."""
+
+
 class ServerState:
     """What every request shares: the model, the voice-state LRU, the
-    optional batcher, the single-stream lock and the worker pool."""
+    optional batcher, the registered adapters, the single-stream lock and
+    the worker pool.
+
+    ``adapters``: name -> artifact path (a fine-tuned checkpoint or a LoRA
+    adapter).  ``bankable``: the names in the batcher's adapter bank, which
+    ride the batcher; the others run on their merged model."""
 
     def __init__(self, model: TTSModel, *, voice_cache_capacity: int = 8,
                  default_voice: str = voices_mod.DEFAULT_VOICE, batcher=None,
-                 adapters: dict[str, str] | None = None):
-        if adapters:
-            raise NotImplementedError("adapters: per-slot LoRA adapters are not ported yet")
+                 adapters: dict[str, str] | None = None, adapter_cache_capacity: int = 2,
+                 bankable: frozenset = frozenset()):
         self.model = model
         self.cache = voices_mod.VoiceStateCache(voice_cache_capacity)
         self.default_voice = default_voice
         self.batcher = batcher
+        self.bankable = bankable
+        self.adapters = dict(adapters or {})
+        # name -> (merged model, its voice-state cache), least recent first
+        self._adapted: collections.OrderedDict[str, tuple] = collections.OrderedDict()
+        self._adapted_lock = threading.Lock()
+        self._adapter_cap = max(1, adapter_cache_capacity)
+        self._voice_cache_capacity = voice_cache_capacity
         self.lock = asyncio.Lock()
         # a stream occupies one worker for its whole duration (its producer
         # runs in the pool), so the pool covers every batcher slot plus
@@ -101,24 +121,57 @@ class ServerState:
                 return fn()
         return asyncio.get_running_loop().run_in_executor(self.pool, run)
 
-    def resolve(self, spec: str | None):
-        """Voice spec -> VoiceState.  An explicitly requested voice that
-        cannot be resolved raises ``VoiceResolutionError`` (a 400: another
-        voice would answer 200 with the wrong speaker); the default voice
-        falls back to the empty state, so a server without the stock voices
-        stays usable."""
+    def adapted(self, name: str) -> tuple:
+        """(merged model, voice cache) of a registered adapter, built on
+        first use (artifact load, merge, engine: call it off the event loop)
+        into an LRU of ``adapter_cache_capacity``.  Two concurrent misses may
+        both build it (the build runs outside the lock); the last insert
+        wins.  An unknown name, or an artifact that fails to load, raises
+        AdapterError."""
+        if name not in self.adapters:
+            raise AdapterError(f"unknown adapter {name!r}; registered: "
+                               f"{sorted(self.adapters) or 'none'}")
+        with self._adapted_lock:
+            pair = self._adapted.get(name)
+            if pair is not None:
+                self._adapted.move_to_end(name)
+                return pair
+        from pocket_tts_tpu_torch.training import apply_adapted
+
+        try:
+            model = apply_adapted(self.model, self.adapters[name])
+        except (OSError, ValueError) as e:
+            raise AdapterError(f"adapter {name!r} failed to load: {e}") from e
+        pair = (model, voices_mod.VoiceStateCache(self._voice_cache_capacity))
+        with self._adapted_lock:
+            self._adapted[name] = pair
+            self._adapted.move_to_end(name)
+            while len(self._adapted) > self._adapter_cap:
+                evicted, _ = self._adapted.popitem(last=False)
+                logger.info("adapter cache evicted %s", evicted)
+        return pair
+
+    def resolve(self, spec: str | None, *, model: TTSModel | None = None, cache=None):
+        """Voice spec -> VoiceState, by ``model`` into ``cache`` (default:
+        the base model and its cache; an adapter's world otherwise).  An
+        explicitly requested voice that cannot be resolved raises
+        ``VoiceResolutionError`` (a 400: another voice would answer 200 with
+        the wrong speaker); the default voice falls back to the empty state,
+        so a server without the stock voices stays usable."""
+        model = model if model is not None else self.model
+        cache = cache if cache is not None else self.cache
         explicit = spec is not None and spec != self.default_voice
         spec = spec or self.default_voice
         try:
-            return voices_mod.resolve_voice_cached(self.model, spec, self.cache)
+            return voices_mod.resolve_voice_cached(model, spec, cache)
         except Exception as e:  # noqa: BLE001 - any failure of an explicit voice is the client's
             if explicit:
                 raise voices_mod.VoiceResolutionError(f"voice {spec!r} unresolvable: {e}") from e
             logger.warning("voice %r unresolvable (%s); using unconditioned state", spec, e)
-            return self.model.get_voice_state()
+            return model.get_voice_state()
 
-    def model_with_overrides(self, body: dict) -> TTSModel:
-        return self.model.with_params(
+    def model_with_overrides(self, body: dict, base: TTSModel | None = None) -> TTSModel:
+        return (base if base is not None else self.model).with_params(
             temp=body.get("temperature"),
             # "lsd_steps" is the API's field; the library's spelling is an alias
             lsd_decode_steps=body.get("lsd_steps", body.get("lsd_decode_steps")),
@@ -144,20 +197,30 @@ def _int_field(body: dict, name: str, default: int = 0) -> int:
     raise RequestError(400, f"{name} must be an integer")
 
 
-def _model_for(state: ServerState, body: dict) -> TTSModel:
-    """The per-request clone; an invalid knob (lsd_steps < 1, a negative
-    temperature) is a client error."""
+def _model_for(state: ServerState, body: dict, base: TTSModel | None = None) -> TTSModel:
+    """The per-request clone of ``base`` (default: the model); an invalid
+    knob (lsd_steps < 1, a negative temperature) is a client error."""
     try:
-        return state.model_with_overrides(body)
+        return state.model_with_overrides(body, base)
     except (ValueError, TypeError) as e:
         raise RequestError(400, str(e)) from e
 
 
-def _check_adapter(body: dict) -> None:
-    """Adapters are not ported: no name can be registered."""
+def _adapter(body: dict) -> str | None:
     name = body.get("adapter")
-    if name:
-        raise RequestError(400, f"unknown adapter {str(name)!r}; registered: none")
+    return str(name) if name else None
+
+
+async def _adapted_for(state: ServerState, body: dict) -> tuple:
+    """(model, voice cache) of the request's adapter, or the base model's;
+    an unknown adapter, or one that fails to load, is a client error."""
+    name = _adapter(body)
+    if name is None:
+        return state.model, state.cache
+    try:
+        return await state.submit(lambda: state.adapted(name))
+    except AdapterError as e:
+        raise RequestError(400, str(e)) from e
 
 
 def _text(text) -> str:
@@ -166,33 +229,40 @@ def _text(text) -> str:
     return str(text)
 
 
-async def _resolve_voice(state: ServerState, body: dict):
+async def _resolve_voice(state: ServerState, body: dict, base: TTSModel, cache):
     try:
-        return await state.submit(lambda: state.resolve(body.get("voice")))
+        return await state.submit(lambda: state.resolve(body.get("voice"), model=base,
+                                                        cache=cache))
     except voices_mod.VoiceResolutionError as e:
         raise RequestError(400, str(e)) from e
 
 
-def route_to_batcher(state: ServerState, cont: int) -> bool:
+def route_to_batcher(state: ServerState, cont: int, adapter: str | None = None) -> bool:
     """The routing policy of /generate and /stream alike: concurrent traffic
-    rides the batcher; a lone request and a continuation (whose conditioning
-    depends on the audio it has made) take the single-stream path.  The
-    callers act on the answer with no await in between, so the decision is
-    atomic on the event loop."""
+    rides the batcher, adapter requests too when the bank holds theirs; a
+    lone request, a continuation (whose conditioning depends on the audio it
+    has made) and an adapter outside the bank take the single-stream path.
+    The callers act on the answer with no await in between, so the decision
+    is atomic on the event loop."""
     return (state.batcher is not None and cont <= 0
+            and (adapter is None or adapter in state.bankable)
             and (state.lock.locked() or not state.batcher.idle()))
 
 
 async def generate_wav(state: ServerState, body: dict) -> bytes:
     """A whole WAV for a /generate body (``text``, or ``input``)."""
-    _check_adapter(body)
-    model = _model_for(state, body)
+    base, vcache = await _adapted_for(state, body)
+    model = _model_for(state, body, base)
     text = _text(body.get("text") or body.get("input"))
     cont = _int_field(body, "continuation_frames")
-    voice = await _resolve_voice(state, body)
-    if route_to_batcher(state, cont):
-        # per-request lsd_decode_steps / noise_clamp ride as per-slot data
-        wav = await state.submit(lambda: state.batcher.generate(text, voice, model.gen))
+    voice = await _resolve_voice(state, body, base, vcache)
+    adapter = _adapter(body)
+    if route_to_batcher(state, cont, adapter):
+        # per-request lsd_decode_steps / noise_clamp ride as per-slot data;
+        # a bankable adapter as the lane's row (its voice state was prefilled
+        # through the adapter's merged model)
+        wav = await state.submit(lambda: state.batcher.generate(text, voice, model.gen,
+                                                                adapter=adapter))
     else:
         async with state.lock:
             wav = await state.submit(lambda: model.generate_with_pauses(
@@ -205,16 +275,16 @@ async def open_stream(state: ServerState, body: dict) -> AsyncIterator[bytes]:
     here, before any byte is sent), then return an async iterator of s16le
     PCM chunks.  Closing the iterator (``aclose``) cancels the generation:
     the batcher retires the request's segments."""
-    _check_adapter(body)
-    model = _model_for(state, body)
+    base, vcache = await _adapted_for(state, body)
+    model = _model_for(state, body, base)
     text = _text(body.get("text"))
     cont = _int_field(body, "continuation_frames")
-    voice = await _resolve_voice(state, body)
-    return _pcm_chunks(state, model, text, voice, cont)
+    voice = await _resolve_voice(state, body, base, vcache)
+    return _pcm_chunks(state, model, text, voice, cont, _adapter(body))
 
 
 async def _pcm_chunks(state: ServerState, model: TTSModel, text: str, voice,
-                      cont: int) -> AsyncIterator[bytes]:
+                      cont: int, adapter: str | None) -> AsyncIterator[bytes]:
     loop = asyncio.get_running_loop()
     queue: asyncio.Queue = asyncio.Queue(maxsize=10)
     cancelled = threading.Event()  # set when the consumer goes away
@@ -237,7 +307,7 @@ async def _pcm_chunks(state: ServerState, model: TTSModel, text: str, voice,
     def producer():
         try:
             if use_batcher:
-                source = state.batcher.stream(text, voice, model.gen)
+                source = state.batcher.stream(text, voice, model.gen, adapter=adapter)
             else:
                 source = model.generate_stream_long(text, voice, continuation_frames=cont)
             try:
@@ -253,7 +323,7 @@ async def _pcm_chunks(state: ServerState, model: TTSModel, text: str, voice,
             put(e)
 
     # decided with no await before the lock is taken below
-    use_batcher = route_to_batcher(state, cont)
+    use_batcher = route_to_batcher(state, cont, adapter)
     async with contextlib.nullcontext() if use_batcher else state.lock:
         task = state.submit(producer)
         try:
@@ -291,6 +361,8 @@ def health(state: ServerState) -> dict:
     out = {"status": "ok", "model": "pocket-tts-tpu",
            "uptime_s": round(time.time() - state.started_at, 1),
            "real_weights": state.model.has_real_weights}
+    if state.adapters:
+        out["adapters"] = sorted(state.adapters)
     if state.batcher is not None:
         out["batcher"] = state.batcher.stats()
         if out["batcher"].pop("dead"):
@@ -445,27 +517,64 @@ def create_app(state: ServerState):
     return app
 
 
+def _sniff_adapters(adapters: dict[str, str]) -> dict[str, str]:
+    """Check each artifact's ``format`` (a typo fails at startup, not at the
+    first request); return the bankable ones: LoRA adapters whose targets
+    all lie on the batched delta path."""
+    from pocket_tts_tpu_torch import weights as weights_mod
+    from pocket_tts_tpu_torch.training.lora import LORA_FORMAT, bankable_lora_targets
+    from pocket_tts_tpu_torch.training.trainer import FINETUNED_FORMAT
+
+    bankable = {}
+    for name, path in adapters.items():
+        keys, meta = weights_mod.read_safetensors_header(path)
+        fmt = meta.get("format")
+        if fmt not in (FINETUNED_FORMAT, LORA_FORMAT):
+            raise ValueError(f"adapter {name!r}: {path} has unknown format {fmt!r}")
+        if fmt == LORA_FORMAT and bankable_lora_targets(keys):
+            bankable[name] = str(path)
+    return bankable
+
+
 def build_state(model: TTSModel, *, voice_cache_capacity: int = 8,
                 default_voice: str = voices_mod.DEFAULT_VOICE, prewarm: tuple[str, ...] = (),
-                warmup: bool = True, batch_size: int = 0) -> ServerState:
+                warmup: bool = True, batch_size: int = 0,
+                adapters: dict[str, str] | None = None) -> ServerState:
     """The state ``start_server`` serves: with ``batch_size > 1`` a started
-    ``batched_tts(model, batch_size, chunk_frames=64, depth=2)``; the default
-    and ``prewarm`` voices resolved into the LRU; then (``warmup``) one
-    ``generate``, the batcher's warmup and one batched stream, so no request
-    pays for first launches."""
+    ``batched_tts(model, batch_size, chunk_frames=64, depth=2)``, with an
+    adapter bank of the bankable ``adapters``; the default and ``prewarm``
+    voices resolved into the LRU; then (``warmup``) one ``generate``, the
+    registered adapters' merged models built (up to the LRU's capacity)
+    with one ``generate`` each, the batcher's warmup and one batched stream,
+    so no request pays for first launches."""
+    bank = None
+    if adapters:
+        bankable = _sniff_adapters(adapters)
+        if bankable and batch_size > 1:
+            from pocket_tts_tpu_torch.training.lora import build_adapter_bank
+
+            bank = build_adapter_bank(bankable)
+            logger.info("adapter bank: %s ride the batched decode loop", sorted(bank.names))
     batcher = None
     if batch_size > 1:
         from pocket_tts_tpu_torch.runtime.batcher import batched_tts
 
-        batcher = batched_tts(model, batch_size=batch_size, chunk_frames=64, depth=2)
+        batcher = batched_tts(model, batch_size=batch_size, chunk_frames=64, depth=2,
+                              adapter_bank=bank)
     state = ServerState(model, voice_cache_capacity=voice_cache_capacity,
-                        default_voice=default_voice, batcher=batcher)
+                        default_voice=default_voice, batcher=batcher, adapters=adapters,
+                        bankable=frozenset(bank.names) if bank is not None else frozenset())
     voice = state.resolve(default_voice)
     for name in prewarm:
         state.resolve(name)
     if warmup:
         t0 = time.time()
         model.generate("Warm up.", voice)
+        # beyond the LRU's capacity a build would be evicted at once
+        for name in list(state.adapters)[:state._adapter_cap]:
+            ta = time.time()
+            state.adapted(name)[0].generate("Warm up.")
+            logger.info("adapter %r prewarmed in %.1f s", name, time.time() - ta)
         if batcher is not None:
             batcher.warmup()
             for _ in batcher.stream("Warm up.", voice):
@@ -479,15 +588,13 @@ def start_server(model: TTSModel, host: str = "0.0.0.0", port: int = 8000, *,
                  prewarm: tuple[str, ...] = (), warmup: bool = True, batch_size: int = 0,
                  adapters: dict[str, str] | None = None) -> None:
     """Blocking entry: ``build_state``, then serve until interrupted.
-    ``adapters`` are not ported: a non-empty mapping raises
-    NotImplementedError before anything is built."""
+    ``adapters`` maps request-selectable names to fine-tuned checkpoint or
+    LoRA artifact paths (``--adapter name=path``)."""
     from aiohttp import web
 
-    if adapters:
-        raise NotImplementedError("adapters: per-slot LoRA adapters are not ported yet")
     state = build_state(model, voice_cache_capacity=voice_cache_capacity,
                         default_voice=default_voice, prewarm=prewarm, warmup=warmup,
-                        batch_size=batch_size)
+                        batch_size=batch_size, adapters=adapters)
     try:
         logger.info("serving on http://%s:%d", host, port)
         web.run_app(create_app(state), host=host, port=port, handle_signals=True, print=None)

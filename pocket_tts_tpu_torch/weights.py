@@ -71,6 +71,16 @@ def read_safetensors(path: str | Path, *, with_metadata: bool = False):
                                   with_metadata=with_metadata)
 
 
+def read_safetensors_header(path: str | Path) -> tuple[list[str], dict]:
+    """(tensor names, ``__metadata__``) of a safetensors file, from its
+    header alone."""
+    with open(path, "rb") as f:
+        (header_len,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(header_len))
+    meta = dict(header.pop("__metadata__", None) or {})
+    return list(header), meta
+
+
 def read_safetensors_bytes(data: bytes, name: str = "<bytes>", *, with_metadata: bool = False):
     """safetensors bytes -> {name: array} (8-byte little-endian header
     length, JSON header, packed data): F32, F16 and BF16 tensors widened to

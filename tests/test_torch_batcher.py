@@ -265,13 +265,21 @@ def test_batcher_engine_shares_model_params(models, batcher):
     assert ours["mimi"]["decoder"][0]["w"] is theirs["mimi"]["decoder"][0]["w"]
 
 
-def test_adapters_are_not_accepted(models, batcher):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatcher(models[1], adapter_bank=object())
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_adapters_are_not_accepted(models, batcher, tmp_path):
+    """A batcher without an adapter bank refuses adapter requests (ValueError,
+    the JAX package's words), one with a bank refuses a name it lacks
+    (KeyError); the per-slot bank itself: tests/test_torch_adapter_bank.py."""
+    from pocket_tts_tpu_torch.training.lora import build_adapter_bank, init_lora, save_lora_params
+
+    with pytest.raises(ValueError, match="no adapter bank"):
         batcher.generate("Adapter request.", adapter="spk")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="no adapter bank"):
         batcher.generate_batch(["Adapter request."], adapters=["spk"])
+    path = tmp_path / "spk.lora.safetensors"
+    save_lora_params(init_lora(models[1].params["flow_lm"], 2), path, rank=2, alpha=2.0)
+    banked = ContinuousBatcher(models[1], adapter_bank=build_adapter_bank({"spk": str(path)}))
+    with pytest.raises(KeyError, match="other"):
+        banked.submit("Adapter request.", adapter="other")
 
 
 # -- batcher against single stream and JAX (tests/test_batcher.py:34-123) ----

@@ -401,3 +401,108 @@ def test_quantized_flag_reaches_the_loader(monkeypatch):
     assert not cli.build_parser().parse_args(["generate", "--text", "x"]).quantized
     args = cli.build_parser().parse_args(["quantize"])
     assert (args.output, args.bits, args.device) == ("model.int8.safetensors", 8, "cuda")
+
+
+# -- fine-tuning: finetune, --finetuned and batch --adapter ------------------------
+
+
+def _training_manifest(model, tmp_path):
+    rng = np.random.default_rng(0)
+    for name in ("a.wav", "b.wav"):
+        audio_io.write_wav(tmp_path / name,
+                           (rng.normal(size=model.sample_rate // 2) * 0.1).astype(np.float32),
+                           model.sample_rate)
+    manifest = tmp_path / "pairs.jsonl"
+    manifest.write_text('{"text": "first pair", "audio": "a.wav"}\n'
+                        "# comment\n"
+                        '{"text": "second pair", "audio": "b.wav"}\n', encoding="utf-8")
+    return manifest
+
+
+def test_finetune_command_and_finetuned_flag(model, tmp_path, monkeypatch, capsys):
+    """``finetune`` trains on a JSONL manifest of (text, audio) pairs and
+    writes the artifact and a sample; ``generate --finetuned`` loads either
+    kind through the real ``_load_model`` (``load_with_params`` patched to the
+    small model), which applies it before ``--quantized``; the JAX package
+    reads both artifacts."""
+    from pocket_tts_tpu.training import load_finetuned_params, load_lora_params
+    from pocket_tts_tpu_torch.training import apply_adapted
+
+    manifest = _training_manifest(model, tmp_path)
+    monkeypatch.setattr(TTSModel, "load_with_params", classmethod(lambda cls, *a, **k: model))
+    art = tmp_path / "tuned.safetensors"
+    assert cli.main(["finetune", "--manifest", str(manifest), "--output", str(art),
+                     "--steps", "2", "--batch-size", "2", "--log-every", "0",
+                     "--sample-text", "tuned sample", "--device", "cpu"]) == 0
+    assert "full FlowLM checkpoint" in capsys.readouterr().err
+    assert _frames(tmp_path / "tuned.sample.wav") > 0
+    assert sorted(load_finetuned_params(art)) == sorted(model.params["flow_lm"])
+
+    out = tmp_path / "gen.wav"
+    text = "With tuned weights."
+    assert cli.main(["generate", "--text", text, "--finetuned", str(art), "--output", str(out),
+                     "--quiet", "--temperature", "0", "--device", "cpu"]) == 0
+    assert _frames(out) == apply_adapted(model, art).generate_with_pauses(text).size
+
+    lart = tmp_path / "tuned.lora.safetensors"
+    assert cli.main(["finetune", "--manifest", str(manifest), "--output", str(lart),
+                     "--steps", "2", "--batch-size", "2", "--log-every", "0",
+                     "--lora-rank", "2", "--device", "cpu"]) == 0
+    assert "rank-2 LoRA adapter" in capsys.readouterr().err
+    assert lart.stat().st_size < art.stat().st_size / 2
+    assert load_lora_params(lart)[1:] == (2, 2.0)
+    assert cli.main(["generate", "--text", "With a LoRA adapter.", "--finetuned", str(lart),
+                     "--output", str(out), "--quiet", "--quantized", "--device", "cpu"]) == 0
+
+    bad = tmp_path / "bad.jsonl"
+    bad.write_text('{"text": "no audio key"}\n', encoding="utf-8")
+    assert cli.main(["finetune", "--manifest", str(bad), "--device", "cpu"]) == 2
+    bad.write_text('{"text": "x", "audio": "missing.wav"}\n', encoding="utf-8")
+    assert cli.main(["finetune", "--manifest", str(bad), "--device", "cpu"]) == 2
+
+
+def test_finetune_parser_has_every_option():
+    args = cli.build_parser().parse_args(["finetune", "--manifest", "m"])
+    assert (args.output, args.steps, args.batch_size, args.lr, args.weight_decay,
+            args.clip_norm, args.warmup_steps, args.eos_weight, args.lora_rank,
+            args.lora_alpha, args.max_tokens, args.voice_wav, args.log_every,
+            args.sample_text, args.finetuned, args.device) == (
+        "model.finetuned.safetensors", 200, 8, 1e-4, 0.01, 1.0, 10, 1.0, 0, None, None,
+        None, 25, None, None, "cuda")
+
+
+def test_batch_manifest_adapters(cli_model, tmp_path):
+    """Manifest lines select registered LoRA adapters and ride one decode
+    loop, each as its merged single stream; an unregistered name, a malformed
+    --adapter and a full checkpoint (not bankable) exit 2 before synthesis."""
+    from pocket_tts_tpu_torch.training import (
+        apply_adapted, finetune, save_finetuned_params, save_lora_params)
+
+    rng = np.random.default_rng(9)
+    tuned = finetune(cli_model, [("batch adapter voice",
+                                  rng.normal(size=(2 * 1920,)).astype(np.float32) * 0.1)],
+                     steps=2, batch_size=1, lr=5e-2, log_every=0, lora_rank=2)
+    factors, rank, alpha = tuned._lora
+    apath = tmp_path / "spk.lora.safetensors"
+    save_lora_params(factors, apath, rank=rank, alpha=alpha)
+    manifest = tmp_path / "m.txt"
+    manifest.write_text('{"text": "Tuned item.", "adapter": "spk", "output": "a.wav"}\n'
+                        '{"text": "Base item.", "output": "b.wav"}\n', encoding="utf-8")
+    out_dir = tmp_path / "out"
+    assert cli.main(["batch", "--manifest", str(manifest), "--out-dir", str(out_dir),
+                     "--batch-size", "2", "--chunk-frames", "4", "--adapter", f"spk={apath}",
+                     "--quiet"]) == 0
+    want = apply_adapted(cli_model, apath).generate_with_pauses("Tuned item.")
+    got, _ = audio_io.read_wav(out_dir / "a.wav")
+    assert got.size == want.size and np.abs(got.reshape(-1) - want).max() <= 1.5e-4
+    assert _frames(out_dir / "b.wav") == cli_model.generate_with_pauses("Base item.").size
+
+    bad = tmp_path / "bad.txt"
+    bad.write_text('{"text": "x", "adapter": "nope"}\n', encoding="utf-8")
+    assert cli.main(["batch", "--manifest", str(bad), "--out-dir", str(out_dir)]) == 2
+    assert cli.main(["batch", "--manifest", str(manifest), "--out-dir", str(out_dir),
+                     "--adapter", "justaname"]) == 2
+    fpath = tmp_path / "full.safetensors"
+    save_finetuned_params(tuned.params["flow_lm"], fpath)
+    assert cli.main(["batch", "--manifest", str(manifest), "--out-dir", str(tmp_path / "o2"),
+                     "--adapter", f"spk={fpath}"]) == 2

@@ -401,3 +401,120 @@ def test_request_layer_serves_lone_and_routed_requests_on_cuda(cuda_device):
     for got in (np.frombuffer(routed[44:], "<i2"), np.frombuffer(pcm, "<i2")):
         assert got.shape == want.shape and want.size > 0
         assert np.abs(got.astype(np.int64) - want).max() <= 4
+
+
+# -- fine-tuning and the adapter bank ---------------------------------------------
+
+
+def test_kernels_refuse_autograd_on_cuda(cuda_device):
+    """Both kernels launch through raw pointers and have no backward: under
+    autograd, with an input that requires grad, each raises instead of
+    returning a result with no grad_fn; without grad mode both launch."""
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.ops.qtensor import quantize_array
+
+    blocks, g = _blocks(cuda_device, 1)
+    sy, h0 = _inputs(g, 2, 512, cuda_device)
+    with pytest.raises(RuntimeError, match="flow_blocks_reference"):
+        fb.flow_blocks(sy, h0.requires_grad_(True), blocks)
+    w = quantize_array(torch.randn(64, 128)).to(cuda_device).to(torch.bfloat16)
+    x = torch.randn(1, 128, device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="qlinear_reference"):
+        ql.qlinear(x, w)
+    with torch.no_grad():
+        assert fb.flow_blocks(sy, h0, blocks).shape == h0.shape
+        assert ql.qlinear(x, w).shape == (1, 64)
+
+
+def test_lora_step_on_cuda_matches_cpu(cuda_device):
+    """One LoRA train step of the small config in float32 (TF32 off), the
+    same draws on both sides: the loss, the metrics and the gradient norm
+    on the card against the CPU within 1e-5 relative, each factor's
+    (clipped) gradient within 1e-4 of its largest; the step moved every
+    factor on the card and kept it finite.  (Adam's first step divides
+    each gradient by its own magnitude, so near-zero gradients make the
+    updated factors no finer test than the gradients.)"""
+    import numpy as np
+
+    from pocket_tts_tpu_torch import config as c
+    from pocket_tts_tpu_torch import weights
+    from pocket_tts_tpu_torch.training import init_lora, make_lora_train_step, make_optimizer
+    from pocket_tts_tpu_torch.training.loss import sample_draws
+    from pocket_tts_tpu_torch.training.trainer import _map
+
+    cfg = _small_config(c.RuntimeConfig())
+    base = weights.from_state_dict(weights.random_state_dict(cfg, 3), cfg)["flow_lm"]
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(1, 50, size=(2, 6)).astype(np.int32),
+             "token_valid": np.array([6, 4], np.int32),
+             "latents": rng.normal(size=(2, 5, 16)).astype(np.float32),
+             "latent_valid": np.array([5, 3], np.int32)}
+    draws = sample_draws(torch.Generator().manual_seed(1), 2, 5, 16, torch.device("cpu"))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        b = _map(base, lambda t: t.to(dev))
+        factors = init_lora(b, 2, seed=4)
+        factors = {t: {"a": f["a"], "b": f["b"] + 0.01} for t, f in factors.items()}
+        start = {t: {k: v.clone() for k, v in f.items()} for t, f in factors.items()}
+        opt = make_optimizer(1e-2)
+        step = make_lora_train_step(cfg, opt, alpha=2.0, rank=2)
+        factors, _, metrics = step(factors, opt.init(factors), b, batch, draws=draws)
+        out[str(dev)] = (metrics, factors, start)
+    (m_cpu, f_cpu, _), (m_gpu, f_gpu, start) = out["cpu"], out[str(cuda_device)]
+    assert sorted(m_gpu) == sorted(m_cpu) and "grad_norm" in m_cpu
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k].item() - v.item()) <= 1e-5 * max(1.0, abs(v.item())), k
+    for t in f_cpu:
+        for leaf in ("a", "b"):
+            g_cpu, g_gpu = f_cpu[t][leaf].grad, f_gpu[t][leaf].grad.cpu()
+            assert (g_gpu - g_cpu).abs().max() <= 1e-4 * max(1.0, g_cpu.abs().max().item()), t
+            moved = f_gpu[t][leaf].detach()
+            assert torch.isfinite(moved).all() and not torch.equal(moved, start[t][leaf]), t
+
+
+def test_bank_lane_matches_merged_stream_on_cuda(cuda_device):
+    """A B = 2 batcher with a one-adapter bank in float32 on the card: the
+    adapter lane against the merged model's single stream on the card, and
+    the base lane against the base stream, within 1e-4 in float audio; every
+    flow evaluation one kernel launch."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from pocket_tts_tpu_torch import config as c
+    from pocket_tts_tpu_torch import weights
+    from pocket_tts_tpu_torch.runtime.batcher import ContinuousBatcher
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+    from pocket_tts_tpu_torch.training import apply_adapted, init_lora, save_lora_params
+    from pocket_tts_tpu_torch.training.lora import build_adapter_bank
+    from pocket_tts_tpu_torch.tts import TTSModel
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _small_config(c.RuntimeConfig(compute_dtype="float32", decode_chunks=(2, 4, 8)))
+    params = weights.from_state_dict(weights.random_state_dict(cfg, 3), cfg)
+    gen = GenParams(temp=0.0, eos_threshold=float("inf"))
+    model = TTSModel(cfg, params, gen=gen, has_real_weights=False, device=cuda_device)
+    factors = init_lora(params["flow_lm"], 2, seed=5)
+    rng = np.random.default_rng(6)
+    factors = {t: {"a": f["a"], "b": torch.from_numpy(
+        rng.normal(0, 0.05, tuple(f["b"].shape)).astype(np.float32))} for t, f in factors.items()}
+    text = "A lane of its own on the card."
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "spk.lora.safetensors"
+        save_lora_params(factors, path, rank=2, alpha=2.0)
+        merged = apply_adapted(model, path)
+        bank = build_adapter_bank({"spk": str(path)})
+    want = [merged.generate_with_pauses(text), model.generate_with_pauses(text)]
+    b = ContinuousBatcher(model, batch_size=2, chunk_frames=4, adapter_bank=bank)
+    b.start()
+    try:
+        launches, evals = fb.flow_blocks.launches, b.engine.flow_evals
+        got = b.generate_batch([text, text], adapters=["spk", None])
+        assert fb.flow_blocks.launches - launches == b.engine.flow_evals - evals > 0
+    finally:
+        b.stop()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.size > 0
+        assert abs(g - w).max() <= 1e-4
+    assert abs(want[0] - want[1]).max() > 1e-3  # the adapter changes the audio

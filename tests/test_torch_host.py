@@ -181,8 +181,15 @@ with tempfile.TemporaryDirectory() as tmp:
     assert model.get_voice_state(os.path.join(tmp, "voice.safetensors")).length == vs.length
 voiced = model.generate("Hi there.", vs)
 assert vs.length == 13 and voiced.size and np.isfinite(voiced).all()
-from pocket_tts_tpu_torch import cli, native
+from pocket_tts_tpu_torch import cli, native, training
 from pocket_tts_tpu_torch.server import app, fleet
+from pocket_tts_tpu_torch.training import data, loss, lora, trainer
+tuned = training.finetune(model, [("Hi there.", np.zeros(3000, np.float32))], steps=1,
+                          log_every=0, lora_rank=2)
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "a.lora.safetensors")
+    training.save_lora_params(tuned._lora[0], path, rank=2, alpha=2.0)
+    assert training.apply_adapted(model, path).generate("Hi.").size
 assert audio.wav_bytes(voiced, 24000) == audio.wav_header(24000, voiced.size) + \
     audio.pcm_i16_le_bytes(voiced)
 loaded = sorted(m for m, mod in sys.modules.items()

@@ -16,8 +16,13 @@ the port's from_state_dict), temp 0.
   so /stream against /generate is held to the same 4 LSB.
 * A request routed to a B=2 batcher against the same request on the
   single-stream path: 4 int16 LSB (1e-4 in float audio).
-* The request layer with aiohttp blocked, adapters refused, and the CLI's
-  ``serve`` and ``fleet``.
+* Adapters (tests/test_server.py:145-300): a LoRA artifact made by the
+  port's ``finetune`` selected per request, against the JAX server serving
+  the same artifact within the same 4 LSB; unknown and unloadable names are
+  400s; the merged-model LRU; a bankable adapter riding the B=2 batcher
+  against its merged single stream (4 LSB).
+* The request layer with aiohttp blocked, and the CLI's ``serve`` and
+  ``fleet``.
 """
 
 import asyncio
@@ -570,18 +575,167 @@ def test_closed_stream_cancels_its_batcher_request(model):
 # -- adapters, aiohttp missing, the CLI ------------------------------------------
 
 
-def test_adapters_are_refused(client, model):
-    with pytest.raises(NotImplementedError, match="adapters"):
-        ServerState(model, adapters={"spk": "spk.lora.safetensors"})
+def test_adapters_are_refused(client, model, tmp_path):
+    """A name no adapter was registered under, and a registered artifact that
+    fails to load, are 400s with the JAX server's words."""
     c, loop = client
 
-    async def go(route, body):
-        resp = await c.post(route, json=body)
+    async def go(cl, route, body):
+        resp = await cl.post(route, json=body)
         return resp.status, await resp.json()
 
     for route in ("/generate", "/stream"):
-        status, body = loop.run_until_complete(go(route, {"text": "hi", "adapter": "spk"}))
+        status, body = loop.run_until_complete(go(c, route, {"text": "hi", "adapter": "spk"}))
         assert status == 400 and body["error"] == "unknown adapter 'spk'; registered: none"
+    broken = _serve(loop, create_app(ServerState(
+        model, adapters={"spk": str(tmp_path / "missing.safetensors")})))
+    try:
+        status, body = loop.run_until_complete(go(broken, "/generate",
+                                                  {"text": "hi", "adapter": "spk"}))
+        assert status == 400 and body["error"].startswith("adapter 'spk' failed to load")
+    finally:
+        loop.run_until_complete(broken.close())
+
+
+class TestAdapters:
+    """Request-selectable fine-tuned adapters (``--adapter name=path``): the
+    merged model on the single stream, per-adapter voice caches, the LRU, and
+    bankable adapters on the batcher."""
+
+    @pytest.fixture(scope="class")
+    def adapter_path(self, model, tmp_path_factory):
+        from pocket_tts_tpu_torch.training import finetune, save_lora_params
+
+        rng = np.random.default_rng(4)
+        pairs = [("adapter voice", rng.normal(size=(2 * 1920,)).astype(np.float32) * 0.1)]
+        tuned = finetune(model, pairs, steps=4, batch_size=1, lr=5e-2, log_every=0,
+                         lora_rank=2)
+        factors, rank, alpha = tuned._lora
+        path = tmp_path_factory.mktemp("adapters") / "spk.lora.safetensors"
+        save_lora_params(factors, path, rank=rank, alpha=alpha)
+        return str(path)
+
+    @pytest.fixture()
+    def apair(self, model, jax_model, adapter_path):
+        """The port's server and the JAX server, both with adapter "spk"."""
+        loop = asyncio.new_event_loop()
+        port = _serve(loop, create_app(ServerState(model, adapters={"spk": adapter_path})))
+        ref = _serve(loop, japp.create_app(japp.ServerState(jax_model,
+                                                            adapters={"spk": adapter_path})))
+        yield port, ref, loop
+        for c in (port, ref):
+            loop.run_until_complete(c.close())
+        loop.close()
+
+    def test_adapter_selects_tuned_model(self, apair):
+        port, ref, loop = apair
+
+        async def health():
+            resp = await port.get("/health")
+            return (await resp.json())["adapters"]
+
+        assert loop.run_until_complete(health()) == ["spk"]
+        body = {"text": "Adapter test.", "adapter": "spk"}
+        base = _samples(_post(loop, port, "/generate", {"text": "Adapter test."}))
+        tuned = _samples(_post(loop, port, "/generate", body))
+        want = _samples(_post(loop, ref, "/generate", body))
+        assert tuned.size == want.size > 0
+        assert np.abs(tuned - want).max() <= LSB
+        # temp 0: the same request differs only through the adapter's weights
+        assert base.shape != tuned.shape or np.abs(base - tuned).max() > LSB
+
+    def test_adapter_streams_and_caches(self, apair):
+        port, ref, loop = apair
+        body = {"text": "Stream adapted.", "adapter": "spk"}
+        pcm = np.frombuffer(_post(loop, port, "/stream", body), "<i2").astype(np.int64)
+        want = np.frombuffer(_post(loop, ref, "/stream", body), "<i2").astype(np.int64)
+        assert pcm.size == want.size > 0 and np.abs(pcm - want).max() <= LSB
+        speech = {"input": "Speech.", "adapter": "spk"}
+        got = _samples(_post(loop, port, "/v1/audio/speech", speech))
+        want = _samples(_post(loop, ref, "/v1/audio/speech", speech))
+        assert got.size == want.size > 0 and np.abs(got - want).max() <= LSB
+
+    def test_unknown_adapter_400(self, apair):
+        port, _, loop = apair
+
+        async def go():
+            resp = await port.post("/generate", json={"text": "x", "adapter": "nope"})
+            assert resp.status == 400
+            assert "unknown adapter" in (await resp.json())["error"]
+            resp = await port.post("/stream", json={"text": "x", "adapter": "nope"})
+            assert resp.status == 400
+
+        loop.run_until_complete(go())
+
+    def test_adapter_cache_eviction(self, model, adapter_path):
+        """The merged-model LRU is bounded; eviction drops the oldest; each
+        adapted model has its own voice cache and shares only the empty voice
+        holder with the base."""
+        state = ServerState(model, adapters={"a": adapter_path, "b": adapter_path},
+                            adapter_cache_capacity=1)
+        m_a, cache_a = state.adapted("a")
+        assert state.adapted("a")[0] is m_a  # a hit
+        assert cache_a is not state.cache and m_a.engine is not model.engine
+        assert m_a._empty_voice is model._empty_voice
+        state.adapted("b")  # evicts a
+        assert list(state._adapted) == ["b"]
+        assert state.adapted("a")[0] is not m_a  # rebuilt after eviction
+        with pytest.raises(app_mod.AdapterError, match="unknown adapter"):
+            state.adapted("zzz")
+
+    def test_bankable_adapter_rides_batcher(self, model, adapter_path):
+        """An adapter request on a busy batched server rides the B=2 batcher
+        as a per-slot row and matches its merged single stream."""
+        from pocket_tts_tpu_torch.training import apply_adapted
+        from pocket_tts_tpu_torch.training.lora import build_adapter_bank
+
+        bank = build_adapter_bank({"spk": adapter_path})
+        batcher = batched_tts(model, batch_size=2, chunk_frames=4, adapter_bank=bank)
+        loop = asyncio.new_event_loop()
+        state = ServerState(model, batcher=batcher, adapters={"spk": adapter_path},
+                            bankable=frozenset(bank.names))
+        c = _serve(loop, create_app(state))
+        text = "Adapter rides the batch."
+        try:
+            async def busy():
+                async with state.lock:  # the request must ride the batcher
+                    resp = await c.post("/generate", json={"text": text, "adapter": "spk"})
+                    assert resp.status == 200
+                    return await resp.read()
+
+            got = _samples(loop.run_until_complete(busy()))
+            assert batcher.stats()["requests_submitted"] == 1
+        finally:
+            loop.run_until_complete(c.close())
+            loop.close()
+            batcher.stop()
+        want = _samples(audio.wav_bytes(
+            apply_adapted(model, adapter_path).generate_with_pauses(text), model.sample_rate))
+        assert got.shape == want.shape and got.size > 0
+        assert np.abs(got - want).max() <= LSB
+
+    def test_build_state_banks_lora_and_merges_the_rest(self, model, adapter_path, tmp_path):
+        """``build_state(adapters=)``: the artifact formats are checked at
+        startup; with a batcher the LoRA adapter joins the bank and a full
+        fine-tune stays on the merged path; warmup builds both merged models
+        (the LRU's capacity is 2)."""
+        from pocket_tts_tpu_torch.training import apply_adapted, save_finetuned_params
+
+        full = tmp_path / "full.safetensors"
+        save_finetuned_params(apply_adapted(model, adapter_path).params["flow_lm"], full)
+        state = app_mod.build_state(model, batch_size=2, default_voice="none",
+                                    adapters={"spk": adapter_path, "full": str(full)})
+        try:
+            assert state.bankable == frozenset({"spk"})
+            assert state.batcher.bank.names == ("spk",)
+            assert list(state._adapted) == ["spk", "full"]
+            assert app_mod.route_to_batcher(state, 0, "spk") is False  # idle: single stream
+        finally:
+            state.batcher.stop()
+        bad = tmp_path / "bad.safetensors"
+        tweights.write_safetensors({"x": np.zeros(1, np.float32)}, bad)
+        with pytest.raises(ValueError, match="unknown format"):
+            app_mod.build_state(model, warmup=False, adapters={"bad": str(bad)})
 
 
 _NO_AIOHTTP = r"""
@@ -640,9 +794,10 @@ def _no_model_load(monkeypatch):
 
 
 def test_cli_serve_adapter_exits_2(monkeypatch, capsys):
+    """A malformed ``--adapter`` is refused before the model loads."""
     _no_model_load(monkeypatch)
-    assert cli.main(["serve", "--device", "cpu", "--adapter", "spk=x.safetensors"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    assert cli.main(["serve", "--device", "cpu", "--adapter", "justaname"]) == 2
+    assert "--adapter must be name=path" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("command", [["serve", "--device", "cpu"],
@@ -663,4 +818,7 @@ def test_cli_serve_passes_its_options(monkeypatch, model):
                      "--prewarm", "alba", "jean", "--no-warmup"]) == 0
     assert seen == {"model": model, "host": "0.0.0.0", "port": 8123, "voice_cache_capacity": 3,
                     "default_voice": "marius", "prewarm": ("alba", "jean"), "warmup": False,
-                    "batch_size": 16}
+                    "batch_size": 16, "adapters": None}
+    assert cli.main(["serve", "--device", "cpu", "--adapter", "a=x.safetensors",
+                     "--adapter", "b=y.safetensors"]) == 0
+    assert seen["adapters"] == {"a": "x.safetensors", "b": "y.safetensors"}
