@@ -7,8 +7,9 @@ result line):
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions.  No CUDA device -> exit 1.
-2. Build: every CUDA kernel of the main path, with nvcc, from the sources in
-   this checkout (into build/pocket_tts_tpu_torch/).
+2. Build: every CUDA kernel of the main path (flow_blocks, qlinear,
+   decode_attention), one nvcc per source started together, from the
+   sources in this checkout (into build/pocket_tts_tpu_torch/).
 3. Kernel against plain: ``flow_blocks`` (one cooperative launch per call)
    against its plain PyTorch version at every shape of ``KERNEL_SHAPES``,
    float32 with TF32 off; a lane alone against the same lane inside B=16,
@@ -16,13 +17,25 @@ result line):
    dim 512, depth 6, B in {1, 4, 16}: cold and warm device us from CUDA
    graphs, the bound and roofline share, the plain chain in a CUDA graph as
    the yardstick, and the wrapper's median ms over 100 runs (the method
-   of the kernel's earlier rows in PERF.md).
+   of the kernel's earlier rows in PERF.md).  Then ``decode_attention``
+   against its plain version at B in {1, 4, 16}, S = 1024, per-slot pos
+   over 0, 1, 511, 1023 and past S, for q bf16 on bf16 / e4m3fn / e5m2
+   caches and q f32 on an f32 cache; a lane alone against the same lane in
+   B=16 and a CUDA-graph replay against eager, bit for bit; at B in {1, 16}
+   with every lane at pos 255 / 511 / 767 on bf16 and e4m3fn caches: cold
+   and warm device us, the bound (the K/V bytes up to pos), the plain route
+   in a CUDA graph and F.scaled_dot_product_attention on the bf16 cache
+   (timed only), in turns.
 4. Main path: ``TTSModel.load`` of the flagship variant (random weights from
    a seed; bf16 backbone, f32 flow net and codec) with an unreachable EOS
    threshold, ``generate`` of three sentences with the kernel launch count
    checked against frames x lsd_decode_steps, first-chunk latency of
    ``generate_stream``, stream-vs-generate at temp 0, and one ``generate`` at
-   the default EOS threshold.
+   the default EOS threshold; a torch.profiler window over a short B=1
+   ``generate``: device ms per frame, busy share, launches per frame, the
+   top kernels by name.  Every path from here on checks its
+   ``decode_attention`` launches against its decoded frames x 6 layers
+   (summed over dispatches on the batcher) and prints ``large_t``.
 5. Reference: a few frames of the full-width model in float32 on the card
    against the same model on the CPU (plain versions everywhere).
 6. Voice: voice-conditioned synthesis on the same model.  A seeded synthetic
@@ -42,8 +55,8 @@ result line):
    chunk_frames=64)`` on the bf16 model: 32 whole-WAV requests through
    ``generate_batch``, lengths, finiteness and the kernel launch count
    (= the sum over dispatches of chunk frames x step ceiling) checked;
-   aggregate x-realtime, ``useful_ratio``, the device busy share of a short
-   profiled run, and ms per admission.  (c) 8 streams arriving while 8
+   aggregate x-realtime, ``useful_ratio``, the profile of a short run (as
+   the main path's, per B=16 step), and ms per admission.  (c) 8 streams arriving while 8
    multi-segment whole-WAV requests fill the batch: first-chunk p50/p90,
    preemptions, each stream's segments in order.  (d) The CLI as
    subprocesses: ``batch --device cuda`` on a 4-line manifest (one JSONL line
@@ -54,8 +67,9 @@ result line):
    odd shape and the stacked in_proj view, each within its stated
    tolerance; each shape's ``launch_plan``; on the tensor-core route a row
    of x alone against the same row inside M=16 and M=32, bit for bit, at the
-   three backbone shapes, int8 and int4; one call replayed from a CUDA graph
-   against eager.  (b) Cold and warm
+   three backbone shapes, int8 and int4; on the f32 route the flow net's
+   three shapes at M 1 / 16 / 32 and a row alone against M=16 and M=32, bit
+   for bit; one call replayed from a CUDA graph against eager.  (b) Cold and warm
    device us of ``qlinear`` (bf16 x) from CUDA graphs as in phase 3, the
    bound and share, the plain version, ``F.linear`` on the unquantized bf16
    weight and ``torch._weight_int8pack_mm`` as yardsticks, and the wrapper's
@@ -200,26 +214,30 @@ def phase_environment() -> tuple[str, str]:
 
 
 def phase_build():
-    """Both kernels' nvcc builds, started together."""
+    """The three kernels' nvcc builds, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
     from pocket_tts_tpu_torch.kernels import flow_blocks as fb
     from pocket_tts_tpu_torch.kernels import qlinear as ql
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        paths = [f.result() for f in [pool.submit(mod.build) for mod in (fb, ql)]]
+    with ThreadPoolExecutor(3) as pool:
+        paths = [f.result() for f in [pool.submit(mod.build) for mod in (fb, ql, da)]]
     print(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.2f} s "
           f"(one nvcc per source, in parallel)")
     # nvcc -Xptxas -v, one line per kernel instantiation: flow_chain_kernel<group,
     # float4 chunks per lane>, qlinear_mma_kernel<8-row tiles of x, packed int4>,
-    # qlinear_f32_kernel<rows of x, packed int4>
+    # qlinear_f32_kernel<rows of x, packed int4>, decode_attention_kernel<q type,
+    # cache kind (0 f32, 1 bf16, 2 e4m3, 3 e5m2)>
     for path in paths:
         entry, spill = "?", ""
         for line in path.with_suffix(".ptxas.txt").read_text().splitlines():
             if "Compiling entry function" in line:
                 m = (re.search(r"\d([a-z_]+_kernel)ILi(\d+)ELi(\d+)E", line)
-                     or re.search(r"\d(qlinear_(?:mma|f32)_kernel)ILi(\d+)ELb(\d)E", line))
+                     or re.search(r"\d(qlinear_(?:mma|f32)_kernel)ILi(\d+)ELb(\d)E", line)
+                     or re.search(r"\d(decode_attention_kernel)I(f|13__nv_bfloat16)Li(\d)E",
+                                  line))
                 entry = f"{m[1]}<{', '.join(m.groups()[1:])}>" if m else line.strip()
             elif "spill" in line:
                 spill = line.strip()
@@ -386,11 +404,193 @@ def phase_kernel(dev) -> dict:
     return out
 
 
+# -- phase 3 (b): decode attention ---------------------------------------------
+
+DECODE_SHAPE = (1024, 16, 64)  # S = max_seq, H, D of the flagship's FlowLM
+DECODE_BATCHES = (1, 4, 16)
+# per-slot pos, cycled over the lanes: 1029 >= S is a full cache
+DECODE_POS = (0, 1, 511, 1023, 1029)
+DECODE_TIMED_POS = (255, 511, 767)
+DECODE_TIMED_BATCHES = (1, 16)  # the main path's and the batcher's B
+
+
+# (q dtype, cache dtype): the bf16 model on its bf16 and fp8 caches, the f32 model
+DECODE_DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float8_e4m3fn),
+                 (torch.bfloat16, torch.float8_e5m2), (torch.float32, torch.float32))
+
+
+def _decode_inputs(gd, b: int, q_dtype, kv_dtype, pos_values, dev):
+    s, h, d = DECODE_SHAPE
+    q = torch.randn(b, 1, h, d, generator=gd, device=dev).to(q_dtype)
+    k = torch.randn(b, s, h, d, generator=gd, device=dev).to(kv_dtype)
+    v = torch.randn(b, s, h, d, generator=gd, device=dev).to(kv_dtype)
+    pos = torch.tensor([pos_values[i % len(pos_values)] for i in range(b)], dtype=torch.int32,
+                       device=dev)
+    return q, k, v, pos
+
+
+def _decode_cost(b: int, p: int, q_dtype, kv_dtype) -> tuple[int, int]:
+    """(bytes, FLOP) of one call with every lane at pos p: the K and V rows up
+    to p read once at storage width, q read and out written once, pos read."""
+    s, h, d = DECODE_SHAPE
+    n = min(p + 1, s)
+    nbytes = 2 * b * n * h * d * kv_dtype.itemsize + 2 * b * h * d * q_dtype.itemsize + 4 * b
+    return nbytes, 4 * b * h * n * d
+
+
+def _decode_bound_catches(da, q, k, v, pos, got, ref, bound, name: str) -> None:
+    """The check has teeth: two wrong kernels are outside the bound, the
+    plain version without the query's own key on every lane with 1 <= pos <
+    S, and the kernel's output scaled by 0.98 on every lane."""
+    live = (pos >= 1) & (pos < k.shape[1])
+    drop = da.decode_attention_reference(q, k, v, (pos - 1).clamp(min=0))
+    scaled = (got.float() * 0.98).to(got.dtype)
+    for what, wrong, lanes in (("own key dropped", drop, live),
+                               ("scaled by 0.98", scaled, torch.ones_like(live))):
+        out = ((wrong.double() - ref.double()).abs() > bound).flatten(1).any(1)
+        _require(bool(out[lanes].all()), f"decode_attention {name}: the bound misses a plain "
+                                         f"output with the {what} on lanes "
+                                         f"{(lanes & ~out).nonzero().flatten().tolist()}")
+
+
+def phase_decode_kernel(dev) -> dict:
+    """decode_attention against its plain version at B in DECODE_BATCHES, S =
+    1024, per-slot pos over DECODE_POS, for each (q, cache) dtype pair; a
+    lane alone against the same lane inside B=16 (bit for bit); one call
+    replayed from a CUDA graph against eager; then at B in
+    DECODE_TIMED_BATCHES, every lane at pos 255 / 511 / 767, bf16 and e4m3fn
+    caches: cold and warm device us as phase 3, the bound, the plain route in
+    a CUDA graph and, on the bf16 cache, F.scaled_dot_product_attention with
+    a boolean mask (timed only; the port never calls it), in turns."""
+    import torch.nn.functional as F
+
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+
+    gd = torch.Generator(device=dev).manual_seed(0)
+    worst, worst_abs, lines = 0.0, 0.0, []
+    for b in DECODE_BATCHES:
+        for q_dtype, kv_dtype in DECODE_DTYPES:
+            errs, bounds = [], []
+            for shift in range(len(DECODE_POS) if b == 1 else 1):
+                pos_values = DECODE_POS[shift:] + DECODE_POS[:shift]
+                q, k, v, pos = _decode_inputs(gd, b, q_dtype, kv_dtype, pos_values, dev)
+                got = da.decode_attention(q, k, v, pos)
+                torch.cuda.synchronize()
+                ref = da.decode_attention_reference(q, k, v, pos)
+                bound = da.error_bound(q, k, v, pos, ref)
+                diff = (got.double() - ref.double()).abs()
+                err, ratio = diff.max().item(), (diff / bound).max().item()
+                name = f"B={b} q {str(q_dtype)[6:]} cache {str(kv_dtype)[6:]}"
+                _require(bool(torch.isfinite(got).all()) and got.dtype == q_dtype,
+                         f"decode_attention {name}: bad output")
+                _require(ratio <= 1.0, f"decode_attention {name} pos {pos.tolist()}: max abs err "
+                                       f"{err}, {ratio} x its element's error_bound")
+                if b == max(DECODE_BATCHES) and q_dtype == torch.bfloat16:
+                    _decode_bound_catches(da, q, k, v, pos, got, ref, bound, name)
+                errs.append(err)
+                bounds.append(bound)
+                worst, worst_abs = max(worst, ratio), max(worst_abs, err)
+            bound = torch.cat([x.flatten() for x in bounds])
+            lines.append(f"B={b} {str(q_dtype)[6:]}/{str(kv_dtype)[6:]} {max(errs):.2e} (bound "
+                         f"median {bound.median().item():.2e}, max {bound.max().item():.2e})")
+    print("kernel decode_attention vs plain (S=1024 H=16 D=64, per-slot pos over "
+          f"{DECODE_POS}; each element within its error_bound: f32 1e-5 max(1, max|out|), bf16 "
+          f"derived from the inputs; worst err / bound {worst:.3f}): " + "; ".join(lines))
+    print("kernel decode_attention: the bf16 bound at B=16 rejects the plain output with the "
+          "query's own key dropped (every lane with 1 <= pos < S) and the kernel's output "
+          "scaled by 0.98 (every lane)")
+
+    for kv_dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        q, k, v, pos = _decode_inputs(gd, 16, torch.bfloat16, kv_dtype, DECODE_POS, dev)
+        batched = da.decode_attention(q, k, v, pos)
+        for b in (0, 2, 3, 4, 15):
+            alone = da.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], pos[b:b + 1])
+            _require(torch.equal(alone[0], batched[b]),
+                     f"decode_attention {kv_dtype}: lane {b} alone differs from inside B=16")
+        _require(torch.equal(da.decode_attention(q, k, v, pos), batched), "run to run")
+    holder = {}
+    graph = _capture(lambda: holder.__setitem__("out", da.decode_attention(q, k, v, pos)))
+    pos.add_(3)  # pos is read on the device: the replay follows it
+    launches = da.decode_attention.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    _require(da.decode_attention.launches == launches, "a graph replay went through the wrapper")
+    _require(torch.equal(holder["out"], da.decode_attention(q, k, v, pos)),
+             "decode_attention: CUDA-graph replay differs from eager")
+    graph.reset()
+    print("kernel decode_attention: lanes 0, 2, 3, 4, 15 alone (B=1) == the same lanes inside "
+          "B=16 (pos 0, 511, 1023, 1029, 1029), bf16 and e4m3fn caches, bit for bit; B=16 "
+          "bit-identical run to run; one call captured in a CUDA graph replays to the eager "
+          "result after pos moved, bit for bit")
+
+    flush_buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def flush():
+        flush_buf.fill_(1.0)
+
+    cells, library_error = {}, None
+    for b in DECODE_TIMED_BATCHES:
+        for kv_dtype in (torch.bfloat16, torch.float8_e4m3fn):
+            for p in DECODE_TIMED_POS:
+                q, k, v, pos = _decode_inputs(gd, b, torch.bfloat16, kv_dtype, (p,), dev)
+                fns = {"kernel": lambda: da.decode_attention(q, k, v, pos),
+                       "plain": lambda: da.decode_attention_reference(q, k, v, pos)}
+                if kv_dtype == torch.bfloat16 and library_error is None:
+                    mask = (torch.arange(DECODE_SHAPE[0], device=dev)[None, :]
+                            <= pos.long()[:, None])[:, None, None, :]
+                    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                    try:
+                        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+                        fns["sdpa"] = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                             attn_mask=mask)
+                    except RuntimeError as e:
+                        library_error = f"unsupported: {str(e)[:160]}"
+                nbytes, flops = _decode_cost(b, p, torch.bfloat16, kv_dtype)
+                cells[(b, str(kv_dtype)[6:], p)] = _kernel_turns(fns, flush, nbytes, flops,
+                                                                 F32_FLOPS, True)
+    del flush_buf
+    torch.cuda.empty_cache()
+    for (b, kv, p), r in cells.items():
+        lib = (f", SDPA bf16 {r['sdpa_cold_us']:.3f}/{r['sdpa_warm_us']:.3f} us, "
+               f"{r['library_ms']:.4f} ms" if "sdpa_cold_us" in r
+               else f", SDPA {library_error}" if kv == "bfloat16"
+               else ", no library call on an fp8 cache")
+        print(f"kernel decode_attention B={b} cache {kv} pos {p}: cold {r['kernel_cold_us']:.3f} "
+              f"us, warm {r['kernel_warm_us']:.3f} us; bound {r['bound_us']:.3f} us by "
+              f"{r['bound_by']}, share {r['share_cold']:.4f} cold / {r['share_warm']:.4f} warm; "
+              f"plain route in a CUDA graph {r['plain_cold_us']:.3f}/{r['plain_warm_us']:.3f} "
+              f"us; wrapper {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}")
+    return {"worst_err_over_tol": worst, "max_abs_err": worst_abs, "cells": cells}
+
+
+def _attn_reset() -> None:
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+
+    da.decode_attention.launches = da.decode_attention.large_t = 0
+
+
+def _attn_check(where: str, frames: int, model) -> dict:
+    """decode_attention launches since the last _attn_reset against the
+    decoded frames x the backbone's layers (one T = 1 call per layer per
+    frame, at any B); prints and returns them with large_t."""
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+
+    layers = model.config.flow_lm.transformer.num_layers
+    n, large = da.decode_attention.launches, da.decode_attention.large_t
+    _require(frames > 0 and n == frames * layers,
+             f"{where}: decode_attention launches {n} != frames {frames} x {layers} layers")
+    print(f"{where}: decode_attention launches {n} = {frames} decoded frames x {layers} "
+          f"layers; large_t {large} (T > 1 prefills on the plain sdpa)")
+    return {"launches": n, "large_t": large}
+
+
 def _pcm(a: np.ndarray) -> np.ndarray:
     return np.round(a * 32767.0).astype(np.int64)
 
 
-def phase_main_path():
+def phase_main_path(smi: str):
+    """The main path at B=1; returns the model, the flow_blocks launches, the
+    decode_attention launches and the B=1 profile."""
     from pocket_tts_tpu_torch import TTSModel
     from pocket_tts_tpu_torch.kernels import flow_blocks as fb
 
@@ -407,8 +607,10 @@ def phase_main_path():
     list(model.generate_stream(TEXT))
     torch.cuda.synchronize()
 
-    # the counted run: every flow evaluation on the path must be a kernel launch
+    # the counted run: every flow evaluation on the path must be a kernel launch,
+    # and every layer's attention of every frame
     fb.flow_blocks.launches = 0
+    _attn_reset()
     eng.frames_decoded = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -429,6 +631,7 @@ def phase_main_path():
           f"{audio.size // model.frame_size} frames emitted, {frames} decoded, "
           f"flow_blocks launches {launches} = frames x {lsd}; {secs:.2f} s audio in "
           f"{dt * 1e3:.1f} ms: x-realtime {secs / dt:.2f}, ms/frame {dt * 1e3 / frames:.3f}")
+    attn = _attn_check("main path", frames, model)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -457,7 +660,14 @@ def phase_main_path():
     _require(c.size // model.frame_size <= budget, "default-EOS generate over budget")
     print(f"main path: default EOS threshold -4.0: {c.size // model.frame_size} frames "
           f"emitted of a {budget}-frame budget ({eng.frames_decoded} decoded)")
-    return model, launches
+
+    # the device's busy share and its kernels by name over a short B=1 generate
+    saved = model.gen
+    model.gen = dataclasses.replace(model.gen, temp=0.7, eos_threshold=float("inf"))
+    profile = _kernel_profile(lambda: model.generate(NARROW_TEXT), eng,
+                              f"B=1 (generate {NARROW_TEXT!r})", smi)
+    model.gen = saved
+    return model, launches, attn, profile
 
 
 def phase_reference():
@@ -517,9 +727,9 @@ def _timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def phase_voice(model) -> int:
+def phase_voice(model) -> tuple[int, dict]:
     """Voice-conditioned synthesis on the card; returns the voiced run's
-    flow_blocks launch count."""
+    flow_blocks and decode_attention launch counts."""
     from pocket_tts_tpu_torch import audio, config, weights
     from pocket_tts_tpu_torch.kernels import flow_blocks as fb
     from pocket_tts_tpu_torch.models import flow_lm, mimi
@@ -593,11 +803,13 @@ def phase_voice(model) -> int:
     lsd = model.gen.lsd_decode_steps
     model.gen = GenParams(temp=0.7, eos_threshold=float("inf"), lsd_decode_steps=lsd)
     fb.flow_blocks.launches = 0
+    _attn_reset()
     eng.frames_decoded = 0
     audio_v, dt = _timed(lambda: model.generate(TEXT, vs))
     launches, decoded = fb.flow_blocks.launches, eng.frames_decoded
     _require(decoded > 0 and launches == decoded * lsd,
              f"voiced: flow_blocks launches {launches} != frames {decoded} x {lsd}")
+    attn = _attn_check("voice", decoded, model)
     _require(bool(np.isfinite(audio_v).all()) and audio_v.size % model.frame_size == 0,
              "voiced: bad audio")
     _require(float(audio_v.std()) > 0, "voiced: silent audio")
@@ -646,7 +858,7 @@ def phase_voice(model) -> int:
     print(f"voice: generate_with_pauses(continuation_frames=8): {head.size} + {gap} zero + "
           f"{tail} samples; silence exact, first segment within {lsb} LSB of its own generate")
     tmp.cleanup()
-    return launches
+    return launches, attn
 
 
 BATCH_SENTENCES = (
@@ -669,20 +881,61 @@ def _budget(model, text: str) -> int:
     return sum(model.estimate_generation_steps(s) for s in model.split_into_best_sentences(text))
 
 
-def _device_busy(trace_path: Path) -> tuple[float, list]:
-    """(ms the device was busy, top kernels [(name, ms)]) from a chrome trace:
-    the union of kernel, memcpy and memset intervals."""
-    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+def _kernel_name(name: str) -> str:
+    """A kernel's name without its argument list and namespace noise."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return re.sub(r"\(.*", "", name)[:72]
+
+
+def _kernel_profile(run, eng, what: str, smi: str) -> dict:
+    """One torch.profiler window over ``run()``: device busy ms (the union of
+    kernel, memcpy and memset intervals in the chrome trace; kernels the
+    batcher's thread launches included) and kernel launches per decoded
+    frame (a B = 16 step is one frame of 16 lanes), the busy share over the
+    wall of the same run unprofiled, and the top kernels by device time."""
+    torch.cuda.synchronize()
+    frames0, t0 = eng.frames_decoded, time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    trace = Path(tempfile.mkdtemp()) / "trace.json"
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    frames1 = eng.frames_decoded
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    frames = eng.frames_decoded - frames1
+    unprofiled = frames1 - frames0
+    _require(frames > 0 and unprofiled > 0, f"profile {what}: {frames} frames profiled")
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    trace.unlink()
     busy, end = 0.0, float("-inf")
     for start, dur in sorted((float(e["ts"]), float(e["dur"])) for e in events):
         if start + dur > end:
             busy += start + dur - max(start, end)
             end = start + dur
+    busy /= 1e3
+    kernels = [e for e in events if e["cat"] == "kernel"]
     by_name: dict[str, float] = {}
-    for e in events:
-        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"]) / 1e3
-    return busy / 1e3, sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    for e in kernels:
+        key = _kernel_name(e["name"])
+        by_name[key] = by_name.get(key, 0.0) + float(e["dur"]) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    if not kernels:
+        print(f"profile {what}: not measured (the trace holds no device events)")
+        return {}
+    share = (busy / frames) / (wall / unprofiled)
+    print(f"profile {what} [{smi}]: {frames} frames; device busy {busy:.2f} ms = "
+          f"{busy / frames:.4f} ms per frame over an unprofiled wall of {wall:.1f} ms for "
+          f"{unprofiled} frames ({wall / unprofiled:.3f} ms per frame): busy share "
+          f"{share:.3f}; "
+          f"{len(kernels) / frames:.1f} kernel launches per frame; top kernels (device ms per "
+          f"frame): " + "; ".join(f"{n} {ms / frames:.4f}" for n, ms in top))
+    return {"frames": frames, "busy_ms": busy, "wall_ms": wall, "busy_share": share,
+            "launches_per_frame": len(kernels) / frames,
+            "top_ms_per_frame": {n: ms / frames for n, ms in top}}
 
 
 def _batch_exactness():
@@ -832,9 +1085,10 @@ def _batch_cli(model) -> None:
     tmp.cleanup()
 
 
-def phase_batch(model) -> int:
-    """Continuous-batched synthesis; returns the flow_blocks launch count of
-    the B=16 whole-WAV run."""
+def phase_batch(model, smi: str) -> dict:
+    """Continuous-batched synthesis; returns the flow_blocks and
+    decode_attention launch counts of the B=16 whole-WAV run and the B=16
+    profile."""
     from pocket_tts_tpu_torch.kernels import flow_blocks as fb
     from pocket_tts_tpu_torch.runtime.batcher import batched_tts
     from pocket_tts_tpu_torch.runtime.engine import GenParams
@@ -852,6 +1106,7 @@ def phase_batch(model) -> int:
         eng = b.engine
         torch.cuda.synchronize()
         fb.flow_blocks.launches = 0
+        _attn_reset()
         eng.flow_evals = eng.frames_decoded = 0
         stats0 = b.stats()
         t0 = time.perf_counter()
@@ -861,6 +1116,8 @@ def phase_batch(model) -> int:
         st = b.stats()
         _require(launches == evals > 0,
                  f"B=16: flow_blocks launches {launches} != sum of chunk x step ceiling {evals}")
+        attn = _attn_check("batch B=16 (frames summed over dispatches)", eng.frames_decoded,
+                           model)
         for text, audio in zip(texts, results):
             want = _budget(model, text) * model.frame_size
             _require(audio.size == want, f"B=16 {text!r}: {audio.size} samples != {want}")
@@ -879,28 +1136,10 @@ def phase_batch(model) -> int:
               f"{eng.frames_decoded} frames dispatched: {wall * 1e3 / eng.frames_decoded:.3f} "
               f"ms per B=16 frame")
 
-        # device busy share of a short run: profiled device time over the
-        # wall of the same run unprofiled
+        # the device's busy share and its kernels by name over a short run
         short = [BATCH_SENTENCES[i % 8] for i in range(16)]
-        t0 = time.perf_counter()
-        b.generate_batch(short)
-        short_wall = (time.perf_counter() - t0) * 1e3
-        trace = Path(tempfile.mkdtemp()) / "batch_trace.json"
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            b.generate_batch(short)
-            prof_wall = (time.perf_counter() - t0) * 1e3
-        prof.export_chrome_trace(str(trace))
-        busy, top = _device_busy(trace)
-        trace.unlink()
-        if busy > 0:
-            print(f"batch: device busy {busy:.1f} ms over a {short_wall:.1f} ms unprofiled wall "
-                  f"(16 one-sentence requests, B=16): busy share {busy / short_wall:.3f} "
-                  f"(profiled wall {prof_wall:.1f} ms); top kernels "
-                  + ", ".join(f"{n[:40]} {ms:.1f} ms" for n, ms in top))
-        else:
-            print("batch: device busy share not measured (the trace holds no device events)")
+        profile = _kernel_profile(lambda: b.generate_batch(short), eng,
+                                  "B=16 (16 one-sentence requests, batched_tts chunk 64)", smi)
 
         _batch_streaming(b, model)
     finally:
@@ -919,7 +1158,7 @@ def phase_batch(model) -> int:
           f"{statistics.median(times):.2f} ms median of 20, synchronized")
     del state
     _batch_cli(model)
-    return launches
+    return {"flow_launches": launches, "attn": attn, "profile": profile}
 
 
 # -- phase 8: narrow storage ---------------------------------------------------
@@ -1019,6 +1258,35 @@ def _narrow_kernel(dev) -> dict:
     print("narrow: qlinear bf16 rows 0, 7, 15 alone (M=1) == the same rows inside M=16 and "
           "M=32, bit for bit, at in_proj, ff1, ff2, int8 and int4; M=16 bit-identical run to run")
 
+    # the f32 route at the flow net's shapes: against plain at M 1, 16 and 32, and
+    # a row alone against the same row inside M=16 and M=32, bit for bit
+    f32_lines = []
+    for n, k in QLINEAR_F32_NK:
+        for bits in (8, 4):
+            _, w, x = _qlinear_case(g, 32, n, k, bits, torch.float32, dev)
+            bias = (torch.randn(n, generator=g) * 0.1).to(dev)
+            ys = {m: ql.qlinear(x[:m].contiguous(), w, bias) for m in (1, 16, 32)}
+            torch.cuda.synchronize()
+            errs = []
+            for m, y in ys.items():
+                ref = ql.qlinear_reference(x[:m], w, bias)
+                e32 = (y - ref).abs().max().item()
+                tol = _qlinear_tol(torch.float32, ref)
+                _require(e32 <= tol, f"qlinear f32 M={m} {n}x{k} int{bits}: err {e32} > {tol}")
+                errs.append(e32)
+                worst, worst_abs = max(worst, e32 / tol), max(worst_abs, e32)
+            for r in (0, 7, 15):
+                alone = ql.qlinear(x[r:r + 1].contiguous(), w, bias)
+                _require(torch.equal(alone[0], ys[16][r]) and torch.equal(alone[0], ys[32][r]),
+                         f"qlinear f32 {n}x{k} int{bits}: row {r} alone differs from M=16/32")
+            pl = ql.launch_plan_f32(n, k, bits == 4)
+            f32_lines.append(f"{n}x{k} int{bits} max err {max(errs):.2e} (plan {pl.warps} warps, "
+                             f"K split {pl.k_warps}, {pl.lanes_per_row} lanes a row, "
+                             f"{pl.chunks_per_lane} slices a lane, grid {pl.grid})")
+    print("narrow: qlinear f32 at the flow net's shapes, M 1/16/32 vs plain (tol 1e-5 max(1, "
+          "max|y|)); rows 0, 7, 15 alone == the same rows inside M=16 and M=32, bit for bit: "
+          + "; ".join(f32_lines))
+
     # one call replayed from a CUDA graph (a cluster launch) against eager
     for bits in (8, 4):
         _, w, x = _qlinear_case(g, 16, 1024, 4096, bits, torch.bfloat16, dev)
@@ -1036,8 +1304,8 @@ def _narrow_kernel(dev) -> dict:
     return {"worst_err_over_tol": worst, "max_abs_err": max(worst_abs, err)}
 
 
-def _qlinear_turns(fns: dict, flush, m: int, nbytes: int, flops: int, peak: float,
-                   times_ms: bool) -> dict:
+def _kernel_turns(fns: dict, flush, nbytes: int, flops: int, peak: float,
+                  times_ms: bool) -> dict:
     """Cold and warm device us of each of ``fns`` (kernel first), in turns
     (each palindrome of turns twice: a cold time is the difference of two
     ~90 us graphs), the bound from ``nbytes`` and ``flops`` at ``peak``, the
@@ -1065,7 +1333,7 @@ def _qlinear_turns(fns: dict, flush, m: int, nbytes: int, flops: int, peak: floa
     if times_ms:
         rec["ms"] = _median_ms(fns["kernel"])
         rec["plain_ms"] = _median_ms(fns["plain"])
-        for lib in ("int8pack", "linear_f32"):
+        for lib in ("int8pack", "linear_f32", "sdpa"):
             if lib in fns:
                 rec["library_ms"] = _median_ms(fns[lib])
     for graph in graphs.values():
@@ -1107,8 +1375,8 @@ def _narrow_times(dev) -> dict:
                     except (RuntimeError, NotImplementedError, AttributeError) as e:
                         library_error = f"unsupported: {type(e).__name__}: {str(e)[:160]}"
                 nbytes = w.q.numel() + 2 * (n + m * k + m * n)
-                out[(bits, m, n, k)] = _qlinear_turns(
-                    fns, flush, m, nbytes, 2 * m * n * k, BF16_TENSOR_FLOPS,
+                out[(bits, m, n, k)] = _kernel_turns(
+                    fns, flush, nbytes, 2 * m * n * k, BF16_TENSOR_FLOPS,
                     m == 1 or (m == 16 and bits == 8))
         for n, k in QLINEAR_F32_NK:
             for m in QLINEAR_F32_MS:
@@ -1118,8 +1386,8 @@ def _narrow_times(dev) -> dict:
                        "plain": lambda: ql.qlinear_reference(x, w),
                        "linear_f32": lambda: F.linear(x, wf)}
                 nbytes = w.q.numel() + 4 * (n + m * k + m * n)
-                out_f32[(bits, m, n, k)] = _qlinear_turns(
-                    fns, flush, m, nbytes, 2 * m * n * k, F32_FLOPS, True)
+                out_f32[(bits, m, n, k)] = _kernel_turns(
+                    fns, flush, nbytes, 2 * m * n * k, F32_FLOPS, True)
     del flush_buf
     torch.cuda.empty_cache()
     for (bits, m, n, k), r in out.items():
@@ -1325,6 +1593,7 @@ def _narrow_generate(model, q8) -> dict:
         expect = _ExpectedQlinear(eng)
         torch.cuda.synchronize()
         fb.flow_blocks.launches = ql.qlinear.launches = 0
+        _attn_reset()
         eng.frames_decoded = eng.flow_evals = 0
         t0 = time.perf_counter()
         audio = m.generate(NARROW_TEXT)
@@ -1337,6 +1606,7 @@ def _narrow_generate(model, q8) -> dict:
                  f"{name}: flow_blocks launches {fn_} != frames {frames} x steps")
         _require(qn == expect.count > 0, f"{name}: qlinear launches {qn} != expected "
                                          f"{expect.count}")
+        attn = _attn_check(f"narrow: generate {name}", frames, m)
         _require(audio.size == frames_budget * model.frame_size
                  and bool(np.isfinite(audio).all()) and float(audio.std()) > 0,
                  f"{name}: bad audio ({audio.size} samples)")
@@ -1350,7 +1620,7 @@ def _narrow_generate(model, q8) -> dict:
               f"shape rule); {dt * 1e3:.1f} ms: ms/frame {dt * 1e3 / frames:.3f}, x-realtime "
               f"{secs / dt:.2f}")
         out[name] = {"ms_per_frame": dt * 1e3 / frames, "x_realtime": secs / dt,
-                     "qlinear_launches": qn, "frames": frames}
+                     "qlinear_launches": qn, "frames": frames, "attn": attn}
     torch.cuda.synchronize()
     fb.flow_blocks.launches = model.engine.frames_decoded = 0
     t0 = time.perf_counter()
@@ -1412,11 +1682,13 @@ def _narrow_voice(model, q8fp8) -> dict:
         expect = _ExpectedQlinear(eng)
         torch.cuda.synchronize()
         fb.flow_blocks.launches = ql.qlinear.launches = 0
+        _attn_reset()
         eng.frames_decoded = eng.flow_evals = 0
         audio, dt = _timed(lambda: q8fp8.generate_with_pauses(PAUSE_TEXT, vs,
                                                               continuation_frames=8))
         expect.close()
         qn, fn_, frames = ql.qlinear.launches, fb.flow_blocks.launches, eng.frames_decoded
+        attn = _attn_check("narrow: int8 + fp8 voice, continuation_frames=8", frames, q8fp8)
         _require(frames > 0 and fn_ == eng.flow_evals == frames * q8fp8.gen.lsd_decode_steps,
                  f"fp8 voice: flow_blocks launches {fn_} != frames {frames} x steps")
         _require(qn == expect.count > 0, f"fp8 voice: qlinear launches {qn} != {expect.count}")
@@ -1461,7 +1733,7 @@ def _narrow_voice(model, q8fp8) -> dict:
     print(f"narrow: int8 + fp8 e4m3 in f32, voice of 20 + {n - 20} conditioning frames (the "
           f"second into a copy), 4 frames: card vs CPU max {lsb} int16 LSB (bound "
           f"{REF_TOL_LSB}), audio std {outs[1].std():.1f} LSB")
-    return {"qlinear_launches": qn, "lsb_card_vs_cpu": lsb}
+    return {"qlinear_launches": qn, "lsb_card_vs_cpu": lsb, "attn": attn}
 
 
 def _narrow_batch(q8fp8) -> dict:
@@ -1478,6 +1750,7 @@ def _narrow_batch(q8fp8) -> dict:
         expect = _ExpectedQlinear(eng)
         torch.cuda.synchronize()
         fb.flow_blocks.launches = ql.qlinear.launches = 0
+        _attn_reset()
         eng.flow_evals = eng.frames_decoded = 0
         t0 = time.perf_counter()
         results = b.generate_batch(texts)
@@ -1486,6 +1759,8 @@ def _narrow_batch(q8fp8) -> dict:
         qn, fn_ = ql.qlinear.launches, fb.flow_blocks.launches
     finally:
         b.stop()
+    attn = _attn_check("narrow: batch B=16 int8 + fp8 (frames summed over dispatches)",
+                       eng.frames_decoded, q8fp8)
     _require(fn_ == eng.flow_evals > 0, f"batch: flow_blocks {fn_} != evals {eng.flow_evals}")
     _require(qn == expect.count > 0, f"batch: qlinear launches {qn} != expected {expect.count}")
     for text, audio in zip(texts, results):
@@ -1498,7 +1773,7 @@ def _narrow_batch(q8fp8) -> dict:
           f"{eng.frames_decoded} steps of 16 lanes ({wall * 1e3 / eng.frames_decoded:.3f} ms "
           f"per step); flow_blocks launches {fn_} = evaluations, qlinear launches {qn} = "
           f"expected")
-    return {"qlinear_launches": qn, "x_realtime": secs / wall}
+    return {"qlinear_launches": qn, "x_realtime": secs / wall, "attn": attn}
 
 
 def _narrow_cli(model) -> None:
@@ -1799,7 +2074,8 @@ def phase_serve(model, q8fp8, smi: str) -> dict:
 
     torch.cuda.synchronize()
     fb.flow_blocks.launches = ql.qlinear.launches = 0
-    evals0 = model.engine.flow_evals
+    _attn_reset()
+    evals0, frames0 = model.engine.flow_evals, model.engine.frames_decoded
     t0 = time.perf_counter()
     state = app.build_state(model, batch_size=16)  # start_server's batcher and warmup
     warm_s = time.perf_counter() - t0
@@ -1814,6 +2090,8 @@ def phase_serve(model, q8fp8, smi: str) -> dict:
     _require(launches == evals > 0, f"serve: flow_blocks launches {launches} != the engines' "
                                     f"flow evaluations {evals}")
     _require(ql.qlinear.launches == 0, "serve: qlinear launched on the bf16 model")
+    attn = _attn_check("serve (single stream and batcher)", model.engine.frames_decoded
+                       - frames0 + state.batcher.engine.frames_decoded, model)
 
     # (g) the int8 + fp8 model behind its own state
     q8fp8.gen = model.gen
@@ -1866,7 +2144,7 @@ def phase_serve(model, q8fp8, smi: str) -> dict:
     print(f"serve [{smi}]: flow_blocks launches {launches} = the engines' flow evaluations; "
           f"phase took {secs:.1f} s")
     return {"flow_launches": launches, "flow_launches_quantized": qflow,
-            "qlinear_launches": qlaunches}
+            "qlinear_launches": qlaunches, "attn": attn}
 
 
 
@@ -2001,9 +2279,9 @@ def _finetune_run(model, pairs, smi: str, **kw):
     return tuned, losses, ms, peak
 
 
-def _generate_launches(m, text: str) -> int:
+def _generate_launches(m, text: str) -> tuple[int, dict]:
     """A temp-0 ``generate`` with EOS off: its flow_blocks launches, checked
-    against frames x lsd_decode_steps."""
+    against frames x lsd_decode_steps, and its decode_attention launches."""
     from pocket_tts_tpu_torch.kernels import flow_blocks as fb
     from pocket_tts_tpu_torch.runtime.engine import GenParams
 
@@ -2011,13 +2289,14 @@ def _generate_launches(m, text: str) -> int:
     eng = m.engine
     torch.cuda.synchronize()
     fb.flow_blocks.launches = eng.frames_decoded = eng.flow_evals = 0
+    _attn_reset()
     audio = m.generate(text)
     n = fb.flow_blocks.launches
     _require(eng.frames_decoded > 0 and n == eng.frames_decoded * m.gen.lsd_decode_steps,
              f"train: generate flow_blocks launches {n} != frames {eng.frames_decoded} x steps")
     _require(audio.size == _budget(m, text) * m.frame_size and bool(np.isfinite(audio).all())
              and float(audio.std()) > 0, f"train: tuned generate: bad audio ({audio.size})")
-    return n
+    return n, _attn_check("train: the tuned model's generate", eng.frames_decoded, m)
 
 
 def _train_finetunes(model, tmp: Path, smi: str) -> dict:
@@ -2038,12 +2317,12 @@ def _train_finetunes(model, tmp: Path, smi: str) -> dict:
     moved = not torch.equal(tuned.params["flow_lm"]["tf"]["ff1"], model.params["flow_lm"]["tf"]["ff1"])
     _require(moved, "train: the full fine-tune moved no weight")
     ql.qlinear.launches = 0
-    launches = _generate_launches(back, TRAIN_TEXT)
+    launches, attn = _generate_launches(back, TRAIN_TEXT)
     _require(ql.qlinear.launches == 0, "train: qlinear launched on a bf16 model")
     print(f"train: save_finetuned_params -> apply_adapted bit-equal; temp-0 generate of the "
           f"tuned model: flow_blocks launches {launches} = frames x 1")
     out["full"] = {"losses": losses, "ms_per_step": ms, "peak_gib": peak,
-                   "generate_launches": launches}
+                   "generate_launches": launches, "attn": attn}
     del tuned, back
 
     snapshot = {p: t.clone() for p, t in _flat(model.params["flow_lm"])}
@@ -2368,15 +2647,45 @@ def _qlinear_entry(narrow: dict, serve: dict, train: dict) -> dict:
     }
 
 
+def _decode_entry(dec: dict, attn: dict, profiles: dict) -> dict:
+    """The kernels line's decode_attention entry: the main path's numbers at
+    B = 1 on the bf16 cache at pos 511, every timed cell, the launches and
+    large_t of every path, and the two profiles."""
+    main = dec["cells"][(1, "bfloat16", 511)]
+    keys = ("kernel_cold_us", "kernel_warm_us", "bound_us", "bound_by", "share_cold",
+            "plain_cold_us", "plain_warm_us", "sdpa_cold_us", "sdpa_warm_us", "ms", "plain_ms",
+            "library_ms")
+    cells = {f"b{b}_{kv}_pos{p}": {key: r[key] for key in keys if key in r}
+             for (b, kv, p), r in dec["cells"].items()}
+    return {
+        "name": "decode_attention", "route": "cuda",
+        "source": "pocket_tts_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "pocket_tts_tpu/ops/attention.py:28",
+        "replaces_note": "XLA's fusion of the K/V convert into the attention dot (_sdpa, "
+                         "reached from causal_cache_attention at :82-100); no Pallas kernel",
+        **{("launches" if path == "main" else f"launches_{path}"): a["launches"]
+           for path, a in attn.items()},
+        "large_t": {path: a["large_t"] for path, a in attn.items()},
+        "max_abs_err": dec["max_abs_err"], "max_abs_err_over_tol": dec["worst_err_over_tol"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"],
+        "library_ms": main.get("library_ms"),
+        "cells": cells,
+        "profiles": profiles,
+    }
+
+
 def main() -> None:
     kind, smi = phase_environment()
     phase_build()
     dev = torch.device("cuda")
     kern = phase_kernel(dev)
-    model, launches = phase_main_path()
+    dec = phase_decode_kernel(dev)
+    model, launches, attn_main, profile_b1 = phase_main_path(smi)
     phase_reference()
-    voice_launches = phase_voice(model)
-    batch_launches = phase_batch(model)
+    voice_launches, attn_voice = phase_voice(model)
+    batch = phase_batch(model, smi)
+    batch_launches = batch["flow_launches"]
     narrow, q8fp8 = phase_narrow(model, dev)
     serve = phase_serve(model, q8fp8, smi)
     train = phase_train(model, q8fp8, smi)
@@ -2401,7 +2710,12 @@ def main() -> None:
         "ms_b4": kern[4]["ms"], "plain_ms_b4": kern[4]["plain_ms"],
         "ms_b16": kern[16]["ms"], "plain_ms_b16": kern[16]["plain_ms"],
         **per_b,
-    }, _qlinear_entry(narrow, serve, train)]}))
+    }, _qlinear_entry(narrow, serve, train), _decode_entry(dec, {
+        "main": attn_main, "voice": attn_voice, "batch": batch["attn"],
+        "narrow": narrow["generate"]["int8+fp8"]["attn"], "fp8_voice": narrow["voice"]["attn"],
+        "narrow_batch": narrow["batch"]["attn"], "serve": serve["attn"],
+        "train_generate": train["full"]["attn"]},
+        {"b1": profile_b1, "b16": batch["profile"]})]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

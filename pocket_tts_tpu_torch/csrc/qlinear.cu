@@ -66,10 +66,29 @@
 //   * The scale (and bias) is applied once, after the f32 sum.
 //
 // f32 x (the flow net's 3 quantized linears, the codec, the f32 reference
-// model) -- `qlinear_f32_kernel`, on the CUDA cores, unchanged from the first
-// version: one warp per output row, each lane's 16-byte slices of the row all
-// loaded before it computes, x staged as f32 in 512-byte chunks permuted so
-// the lanes' 128-bit reads are conflict-free, one butterfly per row of x.
+// model) -- `qlinear_f32_kernel`, on the CUDA cores.  These products are at
+// most 0.5 MFLOP at the flow net's shapes and their byte bounds 0.003-0.25
+// us: latency, not arithmetic, so the design spreads short rows over lanes
+// and SMs and keeps every load in flight at once.
+//   * A row takes the lanes its bytes need (lpr, a power of two up to 32, 16
+//     bytes each): a warp holds 32 / lpr rows, reduced by a segmented
+//     butterfly over the row's lanes (in_w's 16- and 32-byte rows: 32 rows
+//     a warp, where one warp per row left 31 or 30 of 32 lanes idle).
+//   * K is split across the warps of a CTA (kw slices, step c * kw + ks of
+//     the row to slice ks) when N is small, so final_w's 32 rows spread over
+//     8 CTAs; the slices are added in order through shared memory.
+//   * CTAs of 4 or 8 warps, as many as reach ~128 CTAs with the fewest CTAs
+//     past that (each stages x), then the fewest slices a lane, then the most
+//     rows a warp.  On a grid under 64 CTAs a CTA takes at most 4 rows of x
+//     and grid.y the rest: at M = 16 the flow net's small products run on 4x
+//     the CTAs, each with a quarter of the staging and of the sums.
+//   * x is staged once per CTA over K only, in tiles of at most 1024
+//     elements a row, with float4 loads (8 in flight a thread), permuted so
+//     the lanes' 128-bit reads are conflict-free and the rows of a warp read
+//     the same addresses (a broadcast).
+//   * The plan depends on (N, K, format) alone (kernels/qlinear.py
+//     launch_plan_f32), never on M: a row of x gives the same y, bit for bit,
+//     alone and inside M = 16 / 32.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -85,157 +104,6 @@ namespace {
 constexpr int kWarps = 8;  // warps per block, both routes
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxRows = 32;  // rows of x
-
-// -- f32 route --------------------------------------------------------------
-
-constexpr int kChunkBytes = 512;  // q bytes of a row per chunk: 32 lanes x 16
-constexpr int kMaxChunks = 8;     // rows of at most 4096 bytes
-
-// Float index, inside a chunk's staged x row, of the chunk's byte j: lane
-// j / 16, byte i = j % 16 of the lane's slice; group i / 4 of all 32 lanes is
-// 32 consecutive float4s.
-__device__ __forceinline__ int stage_index(int j) {
-  const int lane = j >> 4, i = j & 15;
-  return ((i >> 2) << 7) + (lane << 2) + (i & 3);
-}
-
-template <int MB, bool PACKED>
-__global__ void __launch_bounds__(kThreads)
-    qlinear_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
-                       const float* __restrict__ scale, const float* __restrict__ bias,
-                       float* __restrict__ y, int M, int N, int K, int row_bytes, int chunks,
-                       int aligned) {
-  extern __shared__ float4 smem[];  // [PACKED ? 2 : 1][MB][kChunkBytes] floats
-  float* xs = reinterpret_cast<float*>(smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + warp;
-  const bool live = n < N;
-
-  // 1. every 16-byte slice this lane owns in row n, all loads issued at once
-  uint4 w[kMaxChunks];
-  const uint8_t* row = q + static_cast<size_t>(live ? n : 0) * row_bytes;
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    w[c] = make_uint4(0u, 0u, 0u, 0u);
-    const int off = c * kChunkBytes + lane * 16;
-    if (c < chunks && live && off < row_bytes) {
-      if (aligned) {  // row_bytes % 16 == 0: the slice lies wholly in the row
-        w[c] = __ldg(reinterpret_cast<const uint4*>(row + off));
-      } else {
-        uint32_t words[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          if (off + i < row_bytes) words[i >> 2] |= static_cast<uint32_t>(row[off + i]) << (8 * (i & 3));
-        w[c] = make_uint4(words[0], words[1], words[2], words[3]);
-      }
-    }
-  }
-
-  float acc[MB];
-#pragma unroll
-  for (int m = 0; m < MB; ++m) acc[m] = 0.f;
-
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    if (c >= chunks) break;  // uniform over the block
-    // 2. stage x for this chunk (zero past the row and past M)
-    __syncthreads();
-    const int base = c * kChunkBytes;
-    for (int t = threadIdx.x; t < MB * kChunkBytes; t += kThreads) {
-      const int m = t / kChunkBytes, j = t % kChunkBytes, jj = base + j;
-      float lo = 0.f, hi = 0.f;
-      if (m < M && jj < row_bytes) {
-        const float* xr = x + static_cast<size_t>(m) * K;
-        lo = xr[jj];
-        if (PACKED) hi = xr[row_bytes + jj];
-      }
-      xs[m * kChunkBytes + stage_index(j)] = lo;
-      if (PACKED) xs[(MB + m) * kChunkBytes + stage_index(j)] = hi;
-    }
-    __syncthreads();
-    if (!live) continue;
-
-    // 3. convert this lane's 16 bytes, apply them to the MB staged rows
-    const uint32_t words[4] = {w[c].x, w[c].y, w[c].z, w[c].w};
-    float wl[16], wh[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const uint32_t b = (words[i >> 2] >> (8 * (i & 3))) & 0xFFu;
-      if (PACKED) {
-        wl[i] = static_cast<float>(static_cast<int>(b & 0xFu) - 8);
-        wh[i] = static_cast<float>(static_cast<int>(b >> 4) - 8);
-      } else {
-        wl[i] = static_cast<float>(static_cast<int8_t>(b));
-        wh[i] = 0.f;
-      }
-    }
-    const float4* xs4 = reinterpret_cast<const float4*>(xs);
-#pragma unroll
-    for (int m = 0; m < MB; ++m) {
-      float a = acc[m];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float4 v = xs4[m * (kChunkBytes / 4) + g * 32 + lane];
-        a = fmaf(v.x, wl[4 * g], a);
-        a = fmaf(v.y, wl[4 * g + 1], a);
-        a = fmaf(v.z, wl[4 * g + 2], a);
-        a = fmaf(v.w, wl[4 * g + 3], a);
-        if (PACKED) {
-          const float4 h = xs4[(MB + m) * (kChunkBytes / 4) + g * 32 + lane];
-          a = fmaf(h.x, wh[4 * g], a);
-          a = fmaf(h.y, wh[4 * g + 1], a);
-          a = fmaf(h.z, wh[4 * g + 2], a);
-          a = fmaf(h.w, wh[4 * g + 3], a);
-        }
-      }
-      acc[m] = a;
-    }
-  }
-  if (!live) return;
-
-  // 4. one butterfly per row of x; lane m writes y[m, n]
-  float mine = 0.f;
-#pragma unroll
-  for (int m = 0; m < MB; ++m) {
-    float a = acc[m];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-    if (m == lane) mine = a;
-  }
-  if (lane < M) {
-    float r = mine * scale[n];
-    if (bias != nullptr) r += bias[n];
-    y[static_cast<size_t>(lane) * N + n] = r;
-  }
-}
-
-template <int MB, bool PACKED>
-int launch_f32(const void* x, const void* q, const void* scale, const void* bias, void* y, int M,
-               int N, int K, int row_bytes, int aligned, cudaStream_t stream) {
-  const int smem = (PACKED ? 2 : 1) * MB * kChunkBytes * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        qlinear_f32_kernel<MB, PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int chunks = (row_bytes + kChunkBytes - 1) / kChunkBytes;
-  qlinear_f32_kernel<MB, PACKED><<<(N + kWarps - 1) / kWarps, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const uint8_t*>(q),
-      static_cast<const float*>(scale), static_cast<const float*>(bias), static_cast<float*>(y),
-      M, N, K, row_bytes, chunks, aligned);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool PACKED>
-int dispatch_f32(const void* x, const void* q, const void* scale, const void* bias, void* y,
-                 int M, int N, int K, int row_bytes, int aligned, cudaStream_t s) {
-  if (M <= 1) return launch_f32<1, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
-  if (M <= 2) return launch_f32<2, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
-  if (M <= 4) return launch_f32<4, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
-  if (M <= 8) return launch_f32<8, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
-  if (M <= 16) return launch_f32<16, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
-  return launch_f32<32, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
-}
 
 // -- bf16 route: tensor cores -------------------------------------------------
 
@@ -536,22 +404,266 @@ int dispatch_mma(const void* x, const void* q, const void* scale, const void* bi
                                cpw, smem, s);
 }
 
+// -- f32 route: CUDA cores ----------------------------------------------------
+
+constexpr int kF32MaxChunks = 8;     // 16-byte slices of a row a lane holds
+constexpr int kF32MaxExtent = 1024;  // x elements of a staged row per K tile
+constexpr int kF32Batch = 8;         // float4 loads of x in flight a thread
+
+// A CTA of `warps` warps: warp w is K slice ks = w % kw of row group rw = w /
+// kw; its lanes hold 32 / lpr rows, lpr lanes a row (lane = rg * lpr + l).
+// Row slice (16 bytes) s = step * lpr + l; step = c * kw + ks for the lane's
+// chunk c < cpl.  x is staged per K tile of tile_chunks chunks (tile_chunks *
+// kw steps, tb = that x lpr x 16 bytes of the row): element j of a step's
+// lpr * 16 goes to ((j % 16) / 4 * lpr + j / 16) * 4 + j % 4, so that lane l's
+// float4 g of the step is float4 g * lpr + l (conflict-free; the rows of a
+// warp read the same addresses); int4's high halves (x[:, K/2 + j]) follow at
+// + tb.
+template <bool PACKED>
+__device__ __forceinline__ void stage_x_f32(const float* __restrict__ x, float* xs, int M, int rows,
+                                            int K, int row_bytes, int xvec, int lg_lpr, int b0,
+                                            int lg_tb) {
+  // every extent here is a power of two: the index arithmetic is shifts and
+  // masks (a runtime division is a long dependent chain for one warp a
+  // scheduler)
+  const int tb = 1 << lg_tb, lg_step = lg_lpr + 4;
+  const int lg_ext = lg_tb + (PACKED ? 1 : 0);
+  auto dest = [&](int e) {  // staged index of tile element e
+    const int jl = e & (tb - 1), jj = jl & ((1 << lg_step) - 1);
+    return (PACKED ? (e >> lg_tb) << lg_tb : 0) + ((jl >> lg_step) << lg_step) +
+           ((((jj & 15) >> 2) << lg_lpr) + (jj >> 4)) * 4 + (jj & 3);
+  };
+  auto src = [&](int m, int e) {  // index into x, or -1 past the row or past M
+    const int j = b0 + (e & (tb - 1));
+    return j < row_bytes && m < M ? m * K + j + (PACKED && (e >> lg_tb) ? row_bytes : 0) : -1;
+  };
+  const int threads = blockDim.x;
+  if (xvec) {  // K and row_bytes multiples of 4, x 16-byte aligned
+    const int lg_groups = lg_ext - 2, total = rows << lg_groups;
+    for (int i0 = threadIdx.x; i0 < total; i0 += kF32Batch * threads) {
+      float4 v[kF32Batch];
+#pragma unroll
+      for (int u = 0; u < kF32Batch; ++u) {
+        const int i = i0 + u * threads;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < total) {
+          const int s = src(i >> lg_groups, (i & ((1 << lg_groups) - 1)) << 2);
+          if (s >= 0) v[u] = *reinterpret_cast<const float4*>(x + s);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kF32Batch; ++u) {
+        const int i = i0 + u * threads;
+        if (i < total)
+          *reinterpret_cast<float4*>(xs + ((i >> lg_groups) << lg_ext) +
+                                     dest((i & ((1 << lg_groups) - 1)) << 2)) = v[u];
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows << lg_ext; i += threads) {
+      const int m = i >> lg_ext, e = i & ((1 << lg_ext) - 1);
+      const int s = src(m, e);
+      xs[(m << lg_ext) + dest(e)] = s >= 0 ? x[s] : 0.f;
+    }
+  }
+}
+
+template <int MB, bool PACKED>
+__global__ void __launch_bounds__(kThreads)
+    qlinear_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
+                       const float* __restrict__ scale, const float* __restrict__ bias,
+                       float* __restrict__ y, int M, int N, int K, int row_bytes, int aligned,
+                       int xvec, int kw, int lpr, int cpl, int tile_chunks) {
+  extern __shared__ __align__(16) float smem_f32[];
+  // grid.y splits the rows of x in blocks of MB: each row's sum is the same
+  // in any block, so the split changes no bit of y
+  x += static_cast<size_t>(blockIdx.y) * MB * K;
+  y += static_cast<size_t>(blockIdx.y) * MB * N;
+  M = min(M - static_cast<int>(blockIdx.y) * MB, MB);
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rpw = 32 / lpr, rows_cta = (warps / kw) * rpw;
+  const int ks = warp % kw, rg = lane / lpr, l = lane % lpr;
+  const int r = (warp / kw) * rpw + rg;  // the lane's row in the CTA
+  const int n = blockIdx.x * rows_cta + r;
+  const bool live = n < N;
+  const int step_bytes = lpr * 16;
+  const int tb = tile_chunks * kw * step_bytes;  // q bytes of a row per K tile
+  const int ext = tb * (PACKED ? 2 : 1);
+  float* xs = smem_f32;            // [MB][ext], rows past M zero
+  float* part = xs + MB * ext;     // [kw][rows_cta][MB], kw > 1
+
+  // 1. every 16-byte slice this lane owns in row n, all loads issued at once
+  uint4 w[kF32MaxChunks];
+  const uint8_t* row = q + static_cast<size_t>(live ? n : 0) * row_bytes;
+#pragma unroll
+  for (int c = 0; c < kF32MaxChunks; ++c) {
+    w[c] = make_uint4(0u, 0u, 0u, 0u);
+    const int off = (c * kw + ks) * step_bytes + l * 16;
+    if (c < cpl && live && off < row_bytes) w[c] = load_slice(row, off, row_bytes, aligned);
+  }
+  // the scale and bias of the row this thread finishes, loaded now so their
+  // latency hides under the weights': its own row (kw = 1), or row
+  // threadIdx.x % rows_cta of the CTA (kw > 1; rows_cta divides the block)
+  const int fin = kw == 1 ? n : blockIdx.x * rows_cta + threadIdx.x % rows_cta;
+  float sc = 0.f, bi = 0.f;
+  if (fin < N) {
+    sc = scale[fin];
+    if (bias != nullptr) bi = bias[fin];
+  }
+
+  // 2. chunk by chunk, x staged once per K tile; one order for every M
+  float acc[MB];
+#pragma unroll
+  for (int m = 0; m < MB; ++m) acc[m] = 0.f;
+  int staged = -1;
+#pragma unroll
+  for (int c = 0; c < kF32MaxChunks; ++c) {
+    if (c >= cpl) break;  // uniform over the block
+    const int t = c >> (__ffs(tile_chunks) - 1);
+    if (t != staged) {
+      if (staged >= 0) __syncthreads();
+      stage_x_f32<PACKED>(x, xs, M, MB, K, row_bytes, xvec, __ffs(lpr) - 1, t * tb,
+                          __ffs(tb) - 1);
+      __syncthreads();
+      staged = t;
+    }
+    const uint32_t words[4] = {w[c].x, w[c].y, w[c].z, w[c].w};
+    float wl[16], wh[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t b = (words[i >> 2] >> (8 * (i & 3))) & 0xFFu;
+      if (PACKED) {
+        wl[i] = static_cast<float>(static_cast<int>(b & 0xFu) - 8);
+        wh[i] = static_cast<float>(static_cast<int>(b >> 4) - 8);
+      } else {
+        wl[i] = static_cast<float>(static_cast<int8_t>(b));
+        wh[i] = 0.f;
+      }
+    }
+    const int so = ((c - t * tile_chunks) * kw + ks) * step_bytes;  // the step in the tile
+#pragma unroll
+    for (int m = 0; m < MB; ++m) {  // no exit past M: the MB chains interleave
+      const float4* lo = reinterpret_cast<const float4*>(xs + m * ext + so);
+      const float4* hi = reinterpret_cast<const float4*>(xs + m * ext + tb + so);
+      float a = acc[m];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 v = lo[g * lpr + l];
+        a = fmaf(v.x, wl[4 * g], a);
+        a = fmaf(v.y, wl[4 * g + 1], a);
+        a = fmaf(v.z, wl[4 * g + 2], a);
+        a = fmaf(v.w, wl[4 * g + 3], a);
+        if (PACKED) {
+          const float4 h = hi[g * lpr + l];
+          a = fmaf(h.x, wh[4 * g], a);
+          a = fmaf(h.y, wh[4 * g + 1], a);
+          a = fmaf(h.z, wh[4 * g + 2], a);
+          a = fmaf(h.w, wh[4 * g + 3], a);
+        }
+      }
+      acc[m] = a;
+    }
+  }
+
+  // 3. a butterfly over the row's lpr lanes; then the K slices in order
+  for (int off = lpr >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int m = 0; m < MB; ++m) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], off);
+  }
+  if (kw == 1) {
+    if (!live) return;
+#pragma unroll
+    for (int m = 0; m < MB; ++m)
+      if (m < M && (m % lpr) == l) y[static_cast<size_t>(m) * N + n] = acc[m] * sc + bi;
+    return;
+  }
+#pragma unroll
+  for (int m = 0; m < MB; ++m)
+    if (m < M && (m % lpr) == l) part[(ks * rows_cta + r) * MB + m] = acc[m];
+  __syncthreads();
+  if (fin >= N) return;
+  const int rr = threadIdx.x % rows_cta;
+  for (int m = threadIdx.x / rows_cta; m < M; m += blockDim.x / rows_cta) {
+    float v = part[rr * MB + m];
+    for (int s = 1; s < kw; ++s) v += part[(s * rows_cta + rr) * MB + m];
+    y[static_cast<size_t>(m) * N + fin] = v * sc + bi;
+  }
+}
+
+template <int MB, bool PACKED>
+int launch_f32(const void* x, const void* q, const void* scale, const void* bias, void* y, int M,
+               int N, int K, int row_bytes, int aligned, int xvec, int warps, int kw, int lpr,
+               int cpl, int tile_chunks, cudaStream_t stream) {
+  static int configured = 48 * 1024;  // dynamic shared memory the kernel is allowed
+  auto kernel = qlinear_f32_kernel<MB, PACKED>;
+  const int rows_cta = (warps / kw) * (32 / lpr);
+  const int ext = tile_chunks * kw * lpr * 16 * (PACKED ? 2 : 1);
+  const int smem = (MB * ext + (kw > 1 ? kw * rows_cta * MB : 0)) * static_cast<int>(sizeof(float));
+  if (smem > configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = smem;
+  }
+  const dim3 grid((N + rows_cta - 1) / rows_cta, (M + MB - 1) / MB);
+  kernel<<<grid, warps * 32, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const uint8_t*>(q),
+      static_cast<const float*>(scale), static_cast<const float*>(bias), static_cast<float*>(y),
+      M, N, K, row_bytes, aligned, xvec, kw, lpr, cpl, tile_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x_rows: the most rows of x a CTA takes (a power of two); more rows take
+// more CTAs along grid.y.
+template <bool PACKED>
+int dispatch_f32(const void* x, const void* q, const void* scale, const void* bias, void* y,
+                 int M, int N, int K, int row_bytes, int aligned, int xvec, int warps, int kw,
+                 int lpr, int cpl, int tile_chunks, int x_rows, cudaStream_t s) {
+#define PT_F32(MB)                                                                            \
+  return launch_f32<MB, PACKED>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, xvec, warps, \
+                                kw, lpr, cpl, tile_chunks, s)
+  const int mr = M < x_rows ? M : x_rows;
+  if (mr <= 1) PT_F32(1);
+  if (mr <= 2) PT_F32(2);
+  if (mr <= 4) PT_F32(4);
+  if (mr <= 8) PT_F32(8);
+  if (mr <= 16) PT_F32(16);
+  PT_F32(32);
+#undef PT_F32
+}
+
 }  // namespace
 
 // f32 route.  y [M, N] = scale * (x [M, K] @ q^T) (+ bias), on `stream`.  q
 // [N, row_bytes] int8 (packed = 0, row_bytes = K) or split-half int4 (packed =
 // 1, row_bytes = K / 2); x, scale [N], bias [N] (or null) and y float32,
 // contiguous.  aligned = 1 promises q's base and row_bytes are multiples of
-// 16.  1 <= M <= 32, 1 <= row_bytes <= 4096.  Returns a cudaError_t.
+// 16; xvec = 1 promises K and row_bytes multiples of 4 and x 16-byte aligned.
+// Launched as kernels/qlinear.py launch_plan_f32 says: CTAs of `warps` warps
+// (2-8), kw K slices a row (dividing warps), lpr lanes a row (1-32, a power of
+// two), cpl 16-byte slices a lane (1-8, covering the row), x staged in K
+// tiles of tile_chunks chunks (a power of two; at most 1024 elements a row),
+// at most x_rows rows of x a CTA (1-32, a power of two; grid.y takes the
+// rest).  1 <= M <= 32.
+// Returns a cudaError_t.
 extern "C" int pt_qlinear_f32(const void* x, const void* q, const void* scale, const void* bias,
                               void* y, int M, int N, int K, int row_bytes, int packed,
-                              int aligned, void* stream_ptr) {
-  if (M < 1 || M > kMaxRows || N < 1 || row_bytes < 1 ||
-      row_bytes > kMaxChunks * kChunkBytes || K != (packed ? 2 : 1) * row_bytes)
+                              int aligned, int xvec, int warps, int kw, int lpr, int cpl,
+                              int tile_chunks, int x_rows, void* stream_ptr) {
+  const long long covered = static_cast<long long>(cpl) * kw * lpr * 16;
+  const int ext = tile_chunks * kw * lpr * 16 * (packed ? 2 : 1);
+  if (M < 1 || M > kMaxRows || N < 1 || row_bytes < 1 || K != (packed ? 2 : 1) * row_bytes ||
+      warps < 2 || warps > kWarps || kw < 1 || warps % kw != 0 || lpr < 1 || lpr > 32 ||
+      (lpr & (lpr - 1)) != 0 || cpl < 1 || cpl > kF32MaxChunks || covered < row_bytes ||
+      tile_chunks < 1 || (tile_chunks & (tile_chunks - 1)) != 0 || ext > kF32MaxExtent ||
+      x_rows < 1 || x_rows > kMaxRows || (x_rows & (x_rows - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  return packed ? dispatch_f32<true>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s)
-                : dispatch_f32<false>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, s);
+  return packed ? dispatch_f32<true>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, xvec,
+                                     warps, kw, lpr, cpl, tile_chunks, x_rows, s)
+                : dispatch_f32<false>(x, q, scale, bias, y, M, N, K, row_bytes, aligned, xvec,
+                                      warps, kw, lpr, cpl, tile_chunks, x_rows, s);
 }
 
 // bf16 route, the same function with x, scale, bias and y bfloat16, on the

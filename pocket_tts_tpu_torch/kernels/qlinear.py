@@ -11,7 +11,7 @@ scale's), as the JAX package does, for ``x`` [..., K] and a QTensor ``w``
 * CUDA tensors with at most :data:`MAX_ROWS` rows of x (the decode frame at
   B <= 32) launch a kernel; ``qlinear.launches`` counts the launches.  A
   bfloat16 weight takes the tensor-core route, sized by :func:`launch_plan`;
-  a float32 one the CUDA-core route (one warp per output row).
+  a float32 one the CUDA-core route, sized by :func:`launch_plan_f32`.
 * CUDA tensors with more rows (prefill, conditioning, the codec's transformer
   over 16 positions per frame) go through ``mat()`` and one ``torch.matmul``
   by this shape rule, never as a fall back; ``qlinear.large_m`` counts them.
@@ -36,7 +36,7 @@ from pocket_tts_tpu_torch.ops.qtensor import QTensor, mat
 
 SOURCE = build_mod.PKG / "csrc" / "qlinear.cu"
 MAX_ROWS = 32  # rows of x the kernels take (kMaxRows)
-MAX_ROW_BYTES = 4096  # bytes of q per output row (the f32 route's kMaxChunks * 512)
+MAX_ROW_BYTES = 4096  # bytes of q per output row, both routes
 WARPS = 8  # warps per CTA (kWarps)
 CHUNK = 64  # bytes of a row per MMA chunk: 4 lanes x 16 (kMmaChunk)
 MAX_CHUNKS_WARP = 4  # chunks a warp loads at once (kMaxChunksWarp)
@@ -44,6 +44,9 @@ MAX_CLUSTER = 8  # the portable cluster size (kMaxCluster)
 MAX_X_EXTENT = 2048  # x elements of a row staged per CTA (kMaxXExtent)
 TARGET_CTAS = 128  # about one CTA per SM of the H100's 132
 MAX_SMEM_BYTES = 232_448  # shared memory one CTA may use on Hopper (227 KB)
+F32_WARPS = (8, 4)  # CTA sizes of the f32 route, the larger first
+F32_MAX_CHUNKS = 8  # 16-byte slices of a row a lane holds (kF32MaxChunks)
+F32_MAX_X_EXTENT = 1024  # x elements of a staged row per K tile (kF32MaxExtent)
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()  # launches come from several threads of a server
@@ -61,7 +64,7 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             f32, bf16 = lib.pt_qlinear_f32, lib.pt_qlinear_bf16
-            f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
             bf16.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
             f32.restype = bf16.restype = ctypes.c_int
             _lib = lib
@@ -153,6 +156,88 @@ def launch_plan(m: int, n: int, k: int, packed: bool) -> LaunchPlan:
                       grid=row_blocks * cs, x_rows=x_rows, smem=smem)
 
 
+@dataclasses.dataclass(frozen=True)
+class LaunchPlanF32:
+    """One launch of the f32 (CUDA-core) route for an [N, K] weight (bytes of
+    a row ``row_bytes`` = K, or K / 2 packed int4).
+
+    ``grid`` CTAs of ``warps`` warps.  Warp w is K slice ``w % k_warps`` of
+    row group ``w // k_warps``; a row takes ``lanes_per_row`` lanes, so a
+    warp holds ``rows_per_warp`` = 32 / that rows and a CTA ``rows`` =
+    ``warps / k_warps * rows_per_warp``.  Lane l of a row holds, for chunk
+    c < ``chunks_per_lane``, the 16 bytes at ``((c * k_warps + ks) *
+    lanes_per_row + l) * 16`` of the row.  Its sum runs over its chunks and
+    bytes in order; a butterfly over the row's lanes; the K slices added in
+    order (slice 0 first).  A CTA takes at most ``x_rows`` rows of x (4 on a
+    grid under half of :data:`TARGET_CTAS`, else all 32), more rows more
+    CTAs along grid.y; a row's sum is the same in any of them.  x is staged
+    per K tile of ``tile_chunks`` chunks,
+    a power of two (``x_extent`` elements a staged row, both halves of K for
+    int4; every extent a power of two, so the kernel's index arithmetic is
+    shifts).  All of
+    it depends on (N, K, format) alone, never on M."""
+
+    warps: int
+    k_warps: int
+    lanes_per_row: int
+    rows_per_warp: int
+    rows: int
+    chunks_per_lane: int
+    tile_chunks: int
+    x_extent: int
+    grid: int
+    x_rows: int
+
+    def smem(self, m: int) -> int:
+        """Dynamic shared memory of a CTA for ``m`` rows of x: the staged tile
+        (rows past ``m`` zero) and the K slices' partial sums when K is
+        split, both for the rows a CTA takes (``m`` up to ``x_rows``) rounded
+        up as the kernel's row template rounds them (1, 2, 4, 8, 16, 32)."""
+        mb = 1 << (min(m, self.x_rows) - 1).bit_length()
+        part = self.k_warps * self.rows * mb if self.k_warps > 1 else 0
+        return (mb * self.x_extent + part) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan_f32(n: int, k: int, packed: bool) -> LaunchPlanF32:
+    """The f32 route's launch for an [n, k] weight (int8, or split-half int4
+    if ``packed``); no card needed.
+
+    Valid: at most :data:`F32_MAX_CHUNKS` slices a lane, no K slice wholly
+    past the row, a step of every K slice within :data:`F32_MAX_X_EXTENT`
+    staged x elements.  Chosen, in this order: the most CTAs up to
+    :data:`TARGET_CTAS`; then the fewest past it (each CTA stages x); the
+    fewest slices a lane; the most rows a warp (they share x's reads); the
+    larger CTA; the fewer K slices."""
+    row_bytes = k // 2 if packed else k
+    if not 1 <= row_bytes <= MAX_ROW_BYTES:
+        raise ValueError(f"qlinear: rows of {row_bytes} bytes; the kernel takes 1-{MAX_ROW_BYTES}")
+    slices = -(-row_bytes // 16)
+    widest = 1 << (slices - 1).bit_length()
+    best = None
+    for warps in F32_WARPS:
+        for kw in (1, 2, 4, 8):
+            for lpr in (1, 2, 4, 8, 16, 32):
+                steps = -(-slices // lpr)
+                cpl = -(-steps // kw)
+                step_x = kw * lpr * 16 * (2 if packed else 1)
+                if (lpr > widest or kw > min(steps, warps) or cpl > F32_MAX_CHUNKS
+                        or step_x > F32_MAX_X_EXTENT):
+                    continue
+                rows = warps // kw * (32 // lpr)
+                grid = -(-n // rows)
+                key = (min(grid, TARGET_CTAS), -max(grid, TARGET_CTAS), -cpl, 32 // lpr, warps,
+                       -kw)
+                if best is None or key > best[0]:
+                    tile = 1 << (min(cpl, F32_MAX_X_EXTENT // step_x).bit_length() - 1)
+                    best = (key, LaunchPlanF32(warps, kw, lpr, 32 // lpr, rows, cpl, tile,
+                                               tile * step_x, grid,
+                                               4 if grid < TARGET_CTAS // 2 else MAX_ROWS))
+    if best is None:
+        raise ValueError(f"qlinear: no f32 tiling for N={n} K={k}")
+    return best[1]
+
+
 def as_matrix(w: QTensor) -> QTensor:
     """A 2-D view [N, row] of ``w`` (a stacked [3, E, E] in_proj is [3E, E],
     its [3, E] scale flattened); no copy."""
@@ -226,7 +311,11 @@ def qlinear(x: torch.Tensor, w: QTensor, b: torch.Tensor | None = None) -> torch
                                       plan.tiles_per_cta, plan.cluster, plan.chunks_per_warp,
                                       plan.smem, stream)
         else:
-            err = lib.pt_qlinear_f32(*ptrs, m, n, k, row_bytes, packed, aligned, stream)
+            plan = launch_plan_f32(n, k, w2.packed)
+            xvec = int(k % 4 == 0 and row_bytes % 4 == 0 and x2.data_ptr() % 16 == 0)
+            err = lib.pt_qlinear_f32(*ptrs, m, n, k, row_bytes, packed, aligned, xvec, plan.warps,
+                                     plan.k_warps, plan.lanes_per_row, plan.chunks_per_lane,
+                                     plan.tile_chunks, plan.x_rows, stream)
     if err != 0:
         raise RuntimeError(f"qlinear: CUDA launch failed with error {err} (M={m} N={n} K={k} "
                            f"{'int4' if w2.packed else 'int8'} {w2.dtype})")

@@ -8,56 +8,41 @@ this attention to XLA).
 * Mimi: sliding window over a carried KV *tail* of the last ``context - 1``
   positions (``tail_attention``), or over a whole sequence from position 0
   (``banded_attention``, the batch encoder).  Both run long inputs as query
-  blocks batched into one ``_sdpa`` call.
+  blocks batched into one ``sdpa`` call.
 
-Softmax runs in float32.  Masked logits use ``-1e30``, not ``-inf``: padded
-query rows are fully masked, and ``-inf`` would turn them into NaN.
+Every route but the decode kernel runs ``ops.sdpa.sdpa`` (softmax in
+float32, masked logits ``-1e30``).
+
+The FlowLM decode (``causal_cache_attention`` at T = 1) is a hand-written
+Hopper kernel, ``kernels/decode_attention.py``: on CUDA it reads only the
+cache positions up to ``pos`` at storage width, which is what lets the port
+do without the JAX package's static ``window_buckets``.  Calls with T > 1
+(prefills) keep the plain ``sdpa`` by a shape rule (counted on CUDA in
+``decode_attention.large_t``), as do the Mimi's ``tail_attention`` and
+``banded_attention``.
 
 Cache writes are in place: ``cache_write`` and ``prefill_write`` update the
 tensor they are given and return it.  An fp8 cache (``kv_dtype``
 float8_e4m3 / float8_e5m2) is written through a uint8 view of its bytes,
 which is bit-identical and needs no fp8 indexing kernel, and is widened to
-float32 only where it is read (``_sdpa``).  Out of range, torch saturates an
+float32 only where it is read (``sdpa``, or in the decode kernel's
+registers).  Out of range, torch saturates an
 e4m3fn cast at +-448 where XLA gives NaN; attention keys and values stay far
 inside that range.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
-_NEG = -1e30
-FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+from pocket_tts_tpu_torch.kernels.decode_attention import count_large_t, decode_attention
+from pocket_tts_tpu_torch.ops.sdpa import FP8_DTYPES, sdpa
 
 
 def raw_view(t: torch.Tensor) -> torch.Tensor:
     """The bytes of an fp8 tensor as uint8 (any other tensor as it is)."""
     return t.view(torch.uint8) if t.dtype in FP8_DTYPES else t
-
-
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """q [B,T,H,D], k/v [B,S,H,D]; mask [B,1,T,S] or [1,1,T,S] bool.
-
-    K/V stored in another dtype than q are cast to q's dtype, as in the JAX
-    package, except fp8, which goes straight to float32 (the same values:
-    every fp8 value is a bf16 value; one cast fewer).  Logits and the
-    probability-weighted sum accumulate in float32 (bf16 products are exact
-    in f32); probabilities are rounded to q's dtype, never to the storage
-    dtype.
-    """
-    if k.dtype != q.dtype and k.dtype not in FP8_DTYPES:
-        k = k.to(q.dtype)
-    if v.dtype != q.dtype and v.dtype not in FP8_DTYPES:
-        v = v.to(q.dtype)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
-    logits = torch.where(mask, logits, torch.full((), _NEG, device=logits.device))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhts,bshd->bthd", probs.to(q.dtype).float(), v.float())
-    return out.to(q.dtype)
 
 
 def cache_write(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
@@ -91,13 +76,19 @@ def prefill_write(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
 def causal_cache_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                            pos: torch.Tensor) -> torch.Tensor:
     """Causal attention of ``q`` [B,T,H,D] (absolute positions ``pos + i``)
-    against the cache [B,S,H,D] (new keys already written at ``pos..``)."""
+    against the cache [B,S,H,D] (new keys already written at ``pos..``).
+    T = 1 (a decode frame) goes to :func:`decode_attention`: the kernel on
+    CUDA, the plain version on the CPU."""
     t = q.shape[1]
+    if t == 1:
+        return decode_attention(q, k_cache, v_cache, pos)
+    if q.device.type == "cuda":
+        count_large_t()
     s = k_cache.shape[1]
     q_pos = pos.long()[:, None] + torch.arange(t, device=q.device)[None, :]  # [B,T]
     key_idx = torch.arange(s, device=q.device)[None, None, :]
     mask = key_idx <= q_pos[:, :, None]  # [B,T,S]
-    return _sdpa(q, k_cache, v_cache, mask[:, None])
+    return sdpa(q, k_cache, v_cache, mask[:, None])
 
 
 def tail_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -129,7 +120,7 @@ def tail_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
         band = (delta >= 0) & (delta < context)  # [T, S]
         valid = (pos[:, None] - p + j[None, :]) >= 0  # [B, S]
         mask = band[None] & valid[:, None]
-        return _sdpa(q, k, v, mask[:, None]), new_k_tail, new_v_tail
+        return sdpa(q, k, v, mask[:, None]), new_k_tail, new_v_tail
 
     q, k, v = _pad_rows(q, k, v, block)
     span = p + block  # keys for query block qs: concat[qs : qs + P + block)
@@ -159,7 +150,7 @@ def _blocked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block: int,
     """Query block i of ``q`` [B, n*block, H, D] attends the keys
     ``k[:, i*block : i*block + span]`` (k/v [B, (n-1)*block + span, H, D])
     under ``mask`` [B or 1, n, block, span].  All n blocks go through one
-    ``_sdpa`` call, batched as B*n rows: the score tile is
+    ``sdpa`` call, batched as B*n rows: the score tile is
     [B*n, H, block, span], never O(T²)."""
     b, t, h, d = q.shape
     n = t // block
@@ -169,7 +160,7 @@ def _blocked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block: int,
         return x.unfold(1, span, block).permute(0, 1, 4, 2, 3).reshape(b * n, span, h, d)
 
     mask = mask.expand(b, n, block, span).reshape(b * n, 1, block, span)
-    out = _sdpa(q.reshape(b * n, block, h, d), windows(k), windows(v), mask)
+    out = sdpa(q.reshape(b * n, block, h, d), windows(k), windows(v), mask)
     return out.reshape(b, t, h, d)
 
 
@@ -178,7 +169,7 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Whole-sequence causal attention from position 0, with an optional
     sliding window of ``context`` keys (Mimi encoder).  q/k/v [B, T, H, D].
 
-    Up to one block (or without a window) it is one masked ``_sdpa``.
+    Up to one block (or without a window) it is one masked ``sdpa``.
     Otherwise T is padded to a block multiple and keys are padded on the left
     by ``ctx_pad`` (the context rounded up to a block), so query block i
     attends ``ctx_pad + block`` keys starting ``ctx_pad`` before it."""
@@ -190,7 +181,7 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = delta >= 0
         if context is not None:
             mask &= delta < context
-        return _sdpa(q, k, v, mask[None, None])
+        return sdpa(q, k, v, mask[None, None])
 
     q, k, v = _pad_rows(q, k, v, block)
     n = q.shape[1] // block

@@ -518,3 +518,146 @@ def test_bank_lane_matches_merged_stream_on_cuda(cuda_device):
         assert g.shape == w.shape and g.size > 0
         assert abs(g - w).max() <= 1e-4
     assert abs(want[0] - want[1]).max() > 1e-3  # the adapter changes the audio
+
+
+# -- decode attention over the KV cache ----------------------------------------
+
+# (q dtype, cache dtype): the bf16 model on its bf16 / fp8 caches, an f32
+# cache under bf16 q (kv_dtype float32), and the f32 reference model on its
+# f32 and fp8 caches
+DECODE_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float8_e4m3fn),
+                 (torch.bfloat16, torch.float8_e5m2), (torch.bfloat16, torch.float32),
+                 (torch.float32, torch.float32), (torch.float32, torch.float8_e4m3fn)]
+# (B, S, H, D): the flagship's heads at a short cache, an odd S, a narrow head
+DECODE_SHAPES = [(6, 1024, 16, 64), (5, 300, 3, 64), (3, 64, 2, 32)]
+
+
+def _decode_case(device, b, s, h, d, q_dtype, kv_dtype, seed):
+    """q, k/v caches and per-slot pos (0, 1, S - 1, S + 5, then random)."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, 1, h, d, generator=g).to(device, q_dtype)
+    k = torch.randn(b, s, h, d, generator=g).to(device).to(kv_dtype)
+    v = torch.randn(b, s, h, d, generator=g).to(device).to(kv_dtype)
+    pos = torch.randint(0, s, (b,), generator=g, dtype=torch.int32)
+    pos[:4] = torch.tensor([0, 1, s - 1, s + 5])[:b]
+    return q, k, v, pos.to(device)
+
+
+@pytest.mark.parametrize("b,s,h,d", DECODE_SHAPES)
+@pytest.mark.parametrize("q_dtype,kv_dtype", DECODE_DTYPES)
+def test_decode_attention_kernel_matches_plain_on_cuda(cuda_device, b, s, h, d, q_dtype,
+                                                       kv_dtype):
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+
+    q, k, v, pos = _decode_case(cuda_device, b, s, h, d, q_dtype, kv_dtype, b + s + d)
+    launches = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == launches + 1
+    assert got.dtype == q_dtype and got.shape == q.shape and bool(torch.isfinite(got).all())
+    ref = da.decode_attention_reference(q, k, v, pos)
+    # each element within da.error_bound: f32 1e-5 max(1, max|out|), the sums
+    # run in another order; bf16 derived from the inputs (each side's
+    # probabilities rounded to bf16 after an f32 softmax in another order)
+    assert ((got.double() - ref.double()).abs() <= da.error_bound(q, k, v, pos, ref)).all()
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+def test_decode_attention_lane_is_bit_identical_at_any_batch(cuda_device, kv_dtype):
+    """Every sum's order depends on (n, S, D, the cache type) alone: a lane
+    alone (B = 1) equals the same lane inside B = 16, bit for bit, and a
+    call repeats bit for bit."""
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+
+    q, k, v, pos = _decode_case(cuda_device, 16, 1024, 16, 64, torch.bfloat16, kv_dtype, 3)
+    batched = da.decode_attention(q, k, v, pos)
+    for b in (0, 2, 3, 9, 15):
+        alone = da.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], pos[b:b + 1])
+        assert torch.equal(alone[0], batched[b])
+    assert torch.equal(da.decode_attention(q, k, v, pos), batched)
+
+
+def test_decode_attention_cuda_graph_replays_eager(cuda_device):
+    """pos is read on the device: a captured call replays to the eager result
+    after pos moves, with no launch through the wrapper."""
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+
+    q, k, v, pos = _decode_case(cuda_device, 4, 1024, 16, 64, torch.bfloat16, torch.bfloat16, 4)
+    da.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, k, v, pos)
+    pos.add_(7)
+    launches = da.decode_attention.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == launches
+    assert torch.equal(out, da.decode_attention(q, k, v, pos))
+
+
+def test_decode_attention_refuses_autograd_and_bad_input_on_cuda(cuda_device):
+    """On CUDA the wrapper launches the kernel or raises: under autograd, for
+    another dtype, a cache over MAX_POSITIONS, a head width it cannot split."""
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+
+    q, k, v, pos = _decode_case(cuda_device, 2, 64, 2, 64, torch.float32, torch.float32, 5)
+    launches = da.decode_attention.launches
+    with pytest.raises(RuntimeError, match="decode_attention_reference"):
+        da.decode_attention(q.requires_grad_(True), k, v, pos)
+    q = q.detach()
+    with pytest.raises(ValueError, match="float16"):
+        da.decode_attention(q.half(), k, v, pos)
+    big = torch.zeros(2, da.MAX_POSITIONS + 1, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="positions"):
+        da.decode_attention(q, big, big, pos)
+    odd = torch.zeros(2, 64, 2, 24, device=cuda_device)
+    with pytest.raises(ValueError, match="power of two"):
+        da.decode_attention(q[..., :24].contiguous(), odd, odd, pos)
+    with torch.no_grad():
+        assert da.decode_attention(q.requires_grad_(True), k, v, pos).shape == q.shape
+    assert da.decode_attention.launches == launches + 1
+
+
+def test_causal_cache_attention_routes_decode_to_the_kernel_on_cuda(cuda_device):
+    """T = 1 launches the kernel; T > 1 (a prefill) keeps the plain sdpa by
+    the shape rule and counts in large_t."""
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+    from pocket_tts_tpu_torch.ops.attention import causal_cache_attention
+
+    q, k, v, pos = _decode_case(cuda_device, 2, 128, 4, 64, torch.bfloat16, torch.bfloat16, 6)
+    launches, large = da.decode_attention.launches, da.decode_attention.large_t
+    causal_cache_attention(q, k, v, pos)
+    assert (da.decode_attention.launches, da.decode_attention.large_t) == (launches + 1, large)
+    causal_cache_attention(q.expand(2, 8, 4, 64).contiguous(), k, v, pos)
+    assert (da.decode_attention.launches, da.decode_attention.large_t) == (launches + 1,
+                                                                           large + 1)
+
+
+# -- qlinear, f32 x: the flow net's CUDA-core route ------------------------------
+
+# (N, K): in_w, final_ada_w, final_w, then the f32 reference model's backbone
+QLINEAR_F32_NK = [(512, 32), (1024, 512), (32, 512), (3072, 1024), (4096, 1024), (1024, 4096)]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n,k", QLINEAR_F32_NK)
+def test_qlinear_f32_matches_plain_and_rows_are_bit_identical(cuda_device, n, k, bits):
+    """Against plain within 1e-5 max(1, max|y|) (sums in another order) at
+    M = 1, 16 and 32; the plan depends on (N, K, format) alone, so a row of x
+    alone equals the same row inside M = 16 and M = 32, bit for bit."""
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.ops.qtensor import quantize_array
+
+    g = torch.Generator().manual_seed(n + k + bits)
+    w = quantize_array(torch.randn(n, k, generator=g) * k ** -0.5, bits=bits).to(cuda_device)
+    x = torch.randn(32, k, generator=g).to(cuda_device)
+    b = (torch.randn(n, generator=g) * 0.1).to(cuda_device)
+    y16, y32 = ql.qlinear(x[:16], w, b), ql.qlinear(x, w, b)
+    for y, m in ((y16, 16), (y32, 32)):
+        ref = ql.qlinear_reference(x[:m], w, b)
+        assert (y - ref).abs().max().item() <= qlinear_tolerance(torch.float32, ref)
+    for r in (0, 5, 15):
+        alone = ql.qlinear(x[r:r + 1].contiguous(), w, b)
+        assert torch.equal(alone[0], y16[r]) and torch.equal(alone[0], y32[r])
+    assert torch.equal(ql.qlinear(x[:16], w, b), y16)

@@ -182,6 +182,7 @@ with tempfile.TemporaryDirectory() as tmp:
 voiced = model.generate("Hi there.", vs)
 assert vs.length == 13 and voiced.size and np.isfinite(voiced).all()
 from pocket_tts_tpu_torch import cli, native, training
+from pocket_tts_tpu_torch.kernels import decode_attention, flow_blocks, qlinear
 from pocket_tts_tpu_torch.server import app, fleet
 from pocket_tts_tpu_torch.training import data, loss, lora, trainer
 tuned = training.finetune(model, [("Hi there.", np.zeros(3000, np.float32))], steps=1,

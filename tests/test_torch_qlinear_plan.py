@@ -143,3 +143,118 @@ def test_kernel_arithmetic_in_the_plans_order_matches_plain(n, k, fmt):
     want = x @ QTensor(w.q, w.scale.double()).dequant().T  # q * scale in float64
     got = acc[:n].T * w.scale.double().numpy()
     np.testing.assert_allclose(got, want.numpy(), rtol=1e-9, atol=1e-9)
+
+
+# -- the f32 (CUDA-core) route: kernels.qlinear.launch_plan_f32 --------------------
+#
+# The kernel's index arithmetic (csrc/qlinear.cu, ``qlinear_f32_kernel``):
+# CTA c, warp w (K slice ks = w % k_warps, row group w // k_warps), lane
+# (rg = lane // lanes_per_row, l = lane % lanes_per_row) owns row c * rows +
+# (w // k_warps) * rows_per_warp + rg and, for chunk i < chunks_per_lane, the
+# 16 bytes at ((i * k_warps + ks) * lanes_per_row + l) * 16 of it.
+
+# (N, K): the flow net's in_w, final_ada_w, final_w, a backbone shape (the f32
+# reference model's ff2), an odd shape, and the widest rows the kernel takes
+F32_NK = [(512, 32), (1024, 512), (32, 512), (1024, 4096), ODD_NK, (8, 4096)]
+
+
+def _f32_slices(p):
+    """Arrays (row, first byte, K slice, lane of the row) of every 16-byte
+    slice a lane loads, one entry per (CTA, warp, lane, chunk)."""
+    c, w, lane, i = np.meshgrid(np.arange(p.grid), np.arange(p.warps), np.arange(32),
+                                np.arange(p.chunks_per_lane), indexing="ij")
+    ks, group = w % p.k_warps, w // p.k_warps
+    rg, lane_l = lane // p.lanes_per_row, lane % p.lanes_per_row
+    row = c * p.rows + group * p.rows_per_warp + rg
+    off = ((i * p.k_warps + ks) * p.lanes_per_row + lane_l) * 16
+    return row.ravel(), off.ravel(), ks.ravel(), lane_l.ravel()
+
+
+@pytest.mark.parametrize("fmt", sorted(FORMATS))
+@pytest.mark.parametrize("n,k", F32_NK)
+def test_f32_plan_covers_every_row_and_k_byte_once(n, k, fmt):
+    packed = FORMATS[fmt]
+    p = ql.launch_plan_f32(n, k, packed)
+    rb = _row_bytes(k, packed)
+    assert p.rows_per_warp * p.lanes_per_row == 32
+    assert p.rows == p.warps // p.k_warps * p.rows_per_warp and p.warps % p.k_warps == 0
+    assert p.grid == -(-n // p.rows) and p.warps in ql.F32_WARPS
+    reads = np.zeros((p.grid * p.rows, p.chunks_per_lane * p.k_warps * p.lanes_per_row * 16),
+                     np.int32)
+    row, off, _, _ = _f32_slices(p)
+    for b in range(16):
+        np.add.at(reads, (row, off + b), 1)
+    assert (reads[:n, :rb] == 1).all()  # each weight byte once
+    assert (reads <= 1).all()
+    # every output row is finished by one CTA (K slice 0 and the combine)
+    owners = np.zeros(p.grid * p.rows, np.int32)
+    for c in range(p.grid):
+        owners[c * p.rows:(c + 1) * p.rows] += 1
+    assert (owners == 1).all()
+    # every K slice has bytes of the row (none wholly past it)
+    assert (p.k_warps - 1) * p.lanes_per_row * 16 < rb
+
+
+@pytest.mark.parametrize("fmt", sorted(FORMATS))
+@pytest.mark.parametrize("n,k", F32_NK + FRAME_NK)
+def test_f32_plan_fits_shared_memory_at_every_m(n, k, fmt):
+    """The plan takes no M (its split and order are M's for every M); only the
+    staged rows of x and the slices' partial sums grow with M, and fit."""
+    p = ql.launch_plan_f32(n, k, FORMATS[fmt])
+    step_x = p.k_warps * p.lanes_per_row * 16 * (2 if FORMATS[fmt] else 1)
+    assert p.x_extent == p.tile_chunks * step_x <= ql.F32_MAX_X_EXTENT
+    assert 1 <= p.tile_chunks <= p.chunks_per_lane <= ql.F32_MAX_CHUNKS
+    sizes = [p.smem(m) for m in range(1, ql.MAX_ROWS + 1)]
+    assert sizes == sorted(sizes) and sizes[-1] <= ql.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("fmt", sorted(FORMATS))
+def test_f32_plan_spreads_the_flow_net_shapes(fmt):
+    """Short rows share a warp and a small N splits K: final_ada_w reaches
+    ~128 CTAs, final_w's 32 rows split K across warps (int8: over more than
+    the 4 CTAs one warp a row gave), and in_w's rows of 16 / 32 bytes leave
+    no lane without a slice."""
+    packed = FORMATS[fmt]
+    assert ql.launch_plan_f32(1024, 512, packed).grid >= ql.TARGET_CTAS
+    final = ql.launch_plan_f32(32, 512, packed)
+    assert final.k_warps > 1 and (packed or final.grid > 4)
+    p = ql.launch_plan_f32(512, 32, packed)
+    assert p.lanes_per_row * p.chunks_per_lane * p.k_warps * 16 == _row_bytes(32, packed)
+
+
+def test_f32_plan_rejects_rows_it_cannot_take():
+    with pytest.raises(ValueError, match="at most|1-4096"):
+        ql.launch_plan_f32(8, 8192, False)
+
+
+@pytest.mark.parametrize("fmt", sorted(FORMATS))
+@pytest.mark.parametrize("n,k", [(512, 32), (1024, 512), (32, 512), ODD_NK, (1024, 4096)])
+def test_f32_kernel_arithmetic_in_the_plans_order_matches_plain(n, k, fmt):
+    """The f32 route's sum, emulated in float64 in the plan's order (each
+    lane's chunks and bytes, int4's low half against x[:, j] and high half
+    against x[:, K/2 + j], the row's lanes, the K slices in order), equals
+    the plain product."""
+    packed = FORMATS[fmt]
+    g = torch.Generator().manual_seed(n + k + 1)
+    w = quantize_array(torch.randn(n, k, generator=g), bits=4 if packed else 8)
+    x = torch.randn(3, k, generator=g, dtype=torch.float64).numpy()
+    rb = _row_bytes(k, packed)
+    q = w.q.numpy().astype(np.int64)
+    lo = (q & 0xF) - 8 if packed else q
+    hi = (q >> 4) - 8 if packed else None
+    p = ql.launch_plan_f32(n, k, packed)
+    # [row, K slice, lane of the row] partial sums, each over its chunks in order
+    part = np.zeros((p.grid * p.rows, p.k_warps, p.lanes_per_row, 3))
+    row, off, ks, lane_l = _f32_slices(p)
+    for b in range(16):  # the slice's bytes in order
+        j = off + b
+        keep = (row < n) & (j < rb)
+        r, jk, at = row[keep], j[keep], (row[keep], ks[keep], lane_l[keep])
+        np.add.at(part, at, lo[r, jk][:, None] * x[:, jk].T)
+        if packed:
+            np.add.at(part, at, hi[r, jk][:, None] * x[:, rb + jk].T)
+    acc = part.sum(axis=2)  # the butterfly over the row's lanes
+    total = sum(acc[:, s] for s in range(p.k_warps))  # the K slices, slice 0 first
+    got = total[:n].T * w.scale.double().numpy()
+    want = x @ QTensor(w.q, w.scale.double()).dequant().T.numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)

@@ -292,7 +292,13 @@ def test_qlinear_shape_rule():
     one matmul (on CUDA; on the CPU every call is the plain version)."""
     assert ql.MAX_ROWS == 32 and ql.MAX_ROW_BYTES == 4096
     src = ql.SOURCE.read_text()
-    assert "kMaxRows = 32" in src and "kMaxChunks = 8" in src and "kChunkBytes = 512" in src
+    assert "kMaxRows = 32" in src
+    # the f32 route's limits, which cover rows of MAX_ROW_BYTES in both formats
+    assert f"kF32MaxChunks = {ql.F32_MAX_CHUNKS}" in src
+    assert f"kF32MaxExtent = {ql.F32_MAX_X_EXTENT}" in src
+    for k, packed in ((ql.MAX_ROW_BYTES, False), (2 * ql.MAX_ROW_BYTES, True)):
+        p = ql.launch_plan_f32(8, k, packed)
+        assert p.chunks_per_lane * p.k_warps * p.lanes_per_row * 16 >= ql.MAX_ROW_BYTES
     w = tqt.quantize_array(torch.randn(16, 64))
     x = torch.randn(40, 64)
     large = ql.qlinear.large_m
