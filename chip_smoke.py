@@ -17,12 +17,16 @@ result line):
    dim 512, depth 6, B in {1, 4, 16}: cold and warm device us from CUDA
    graphs, the bound and roofline share, the plain chain in a CUDA graph as
    the yardstick, and the wrapper's median ms over 100 runs (the method
-   of the kernel's earlier rows in PERF.md).  Then ``decode_attention``
-   against its plain version at B in {1, 4, 16}, S = 1024, per-slot pos
-   over 0, 1, 511, 1023 and past S, for q bf16 on bf16 / e4m3fn / e5m2
-   caches and q f32 on an f32 cache; a lane alone against the same lane in
-   B=16 and a CUDA-graph replay against eager, bit for bit; at B in {1, 16}
-   with every lane at pos 255 / 511 / 767 on bf16 and e4m3fn caches: cold
+   of the kernel's earlier rows in PERF.md).  Then ``decode_attention``:
+   its launch plans at S = 1024, B 1 and 16 (a cluster of one CTA a rank or
+   a CTA alone, threads, shared bytes, logical ranks, keys a rank), the
+   kernel against its plain version at B in {1, 4, 16}, S = 1024, per-slot
+   pos over 0, 1, 511, 1023 and past S (B = 1 also at pos that leave ranks
+   idle and on rank edges), for q bf16 on bf16 / e4m3fn / e5m2 caches and q
+   f32 on an f32 cache; a lane alone against the same lane in B=16, B=16 in
+   clusters of 8 and alone with 1 .. 4 teams against its plan's, and a
+   CUDA-graph replay against eager, bit for bit; at B in {1, 16} with every lane at pos 255 / 511 /
+   767 (B=16 also at 64 / 128) on bf16 and e4m3fn caches: cold
    and warm device us, the bound (the K/V bytes up to pos), the plain route
    in a CUDA graph and F.scaled_dot_product_attention on the bf16 cache
    (timed only), in turns.
@@ -33,7 +37,8 @@ result line):
    ``generate_stream``, stream-vs-generate at temp 0, and one ``generate`` at
    the default EOS threshold; a torch.profiler window over a short B=1
    ``generate``: device ms per frame, busy share, launches per frame, the
-   top kernels by name.  Every path from here on checks its
+   top kernels by name, the decode attention kernels' device ms and
+   launches per frame.  Every path from here on checks its
    ``decode_attention`` launches against its decoded frames x 6 layers
    (summed over dispatches on the batcher) and prints ``large_t``.
 5. Reference: a few frames of the full-width model in float32 on the card
@@ -228,16 +233,16 @@ def phase_build():
           f"(one nvcc per source, in parallel)")
     # nvcc -Xptxas -v, one line per kernel instantiation: flow_chain_kernel<group,
     # float4 chunks per lane>, qlinear_mma_kernel<8-row tiles of x, packed int4>,
-    # qlinear_f32_kernel<rows of x, packed int4>, decode_attention_kernel<q type,
-    # cache kind (0 f32, 1 bf16, 2 e4m3, 3 e5m2)>
+    # qlinear_f32_kernel<rows of x, packed int4>, decode_attention_kernel and
+    # decode_attention_solo_kernel<q type, cache kind (0 f32, 1 bf16, 2 e4m3, 3 e5m2)>
     for path in paths:
         entry, spill = "?", ""
         for line in path.with_suffix(".ptxas.txt").read_text().splitlines():
             if "Compiling entry function" in line:
                 m = (re.search(r"\d([a-z_]+_kernel)ILi(\d+)ELi(\d+)E", line)
                      or re.search(r"\d(qlinear_(?:mma|f32)_kernel)ILi(\d+)ELb(\d)E", line)
-                     or re.search(r"\d(decode_attention_kernel)I(f|13__nv_bfloat16)Li(\d)E",
-                                  line))
+                     or re.search(r"\d(decode_attention_(?:solo_)?kernel)I(f|13__nv_bfloat16)"
+                                  r"Li(\d)E", line))
                 entry = f"{m[1]}<{', '.join(m.groups()[1:])}>" if m else line.strip()
             elif "spill" in line:
                 spill = line.strip()
@@ -410,8 +415,13 @@ DECODE_SHAPE = (1024, 16, 64)  # S = max_seq, H, D of the flagship's FlowLM
 DECODE_BATCHES = (1, 4, 16)
 # per-slot pos, cycled over the lanes: 1029 >= S is a full cache
 DECODE_POS = (0, 1, 511, 1023, 1029)
+# B = 1 also at pos that leave ranks of the cluster idle (one rank busy up
+# to pos 127) and on the edges where a rank joins (127 / 128 / 129, 255 /
+# 256 / 257, 383 / 384 / 385)
+DECODE_POS_B1 = DECODE_POS + (2, 7, 100, 127, 128, 129, 255, 256, 257, 383, 384, 385)
 DECODE_TIMED_POS = (255, 511, 767)
 DECODE_TIMED_BATCHES = (1, 16)  # the main path's and the batcher's B
+DECODE_BATCHER_POS = (64, 128)  # B = 16 also where the batcher's lanes run (pos ~20-170)
 
 
 # (q dtype, cache dtype): the bf16 model on its bf16 and fp8 caches, the f32 model
@@ -453,26 +463,58 @@ def _decode_bound_catches(da, q, k, v, pos, got, ref, bound, name: str) -> None:
                                          f"{(lanes & ~out).nonzero().flatten().tolist()}")
 
 
+def _decode_plans(da) -> dict:
+    """The launch plan of each (q, cache) dtype pair at the flagship's S, H,
+    D at B = 1 and 16, printed with the keys the largest rank takes and the
+    ranks with keys at the timed pos."""
+    s, h, d = DECODE_SHAPE
+    plans = {}
+    for q_dtype, kv_dtype in DECODE_DTYPES:
+        for b in DECODE_TIMED_BATCHES:
+            p = da.launch_plan(b, s, h, d, (q_dtype, kv_dtype))
+            split = {pos: [j1 - j0 for j0, j1 in da.rank_split(pos + 1, p.ranks) if j1 > j0]
+                     for pos in DECODE_BATCHER_POS + DECODE_TIMED_POS}
+            if b == 1:
+                _require(p.cluster >= 2, f"decode_attention: clusters of {p.cluster} at S={s}")
+            name = f"{str(q_dtype)[6:]}/{str(kv_dtype)[6:]}"
+            how = (f"clusters of {p.cluster} CTAs, one a rank" if p.cluster > 1
+                   else f"a CTA alone per (b, h) of {p.teams} teams")
+            print(f"kernel decode_attention plan B={b} S={s} H={h} D={d} {name}: {how} (grid "
+                  f"{p.grid}), {p.threads} threads, {p.smem} bytes of shared memory, "
+                  f"{p.ranks} logical ranks of at least {p.min_keys} keys, at most "
+                  f"{p.keys_per_rank} keys a rank (ranks with keys x largest: "
+                  f"{', '.join(f'{len(v)} x {max(v)} at pos {pos}' for pos, v in split.items())})"
+                  + (f", tiles of {p.tile} keys through {p.stages} ring buffers"
+                     if p.cluster > 1 else ""))
+            plans[f"B={b} {name}"] = {**dataclasses.asdict(p), "rank_keys_at_pos": split}
+    return plans
+
+
 def phase_decode_kernel(dev) -> dict:
-    """decode_attention against its plain version at B in DECODE_BATCHES, S =
-    1024, per-slot pos over DECODE_POS, for each (q, cache) dtype pair; a
-    lane alone against the same lane inside B=16 (bit for bit); one call
-    replayed from a CUDA graph against eager; then at B in
-    DECODE_TIMED_BATCHES, every lane at pos 255 / 511 / 767, bf16 and e4m3fn
-    caches: cold and warm device us as phase 3, the bound, the plain route in
-    a CUDA graph and, on the bf16 cache, F.scaled_dot_product_attention with
-    a boolean mask (timed only; the port never calls it), in turns."""
+    """decode_attention's launch plans at B = 1 and 16 (a cluster of one CTA
+    a rank, or a CTA alone, from B x H), then the kernel against its plain version at
+    B in DECODE_BATCHES, S = 1024, per-slot pos over DECODE_POS (B = 1: every
+    pos of DECODE_POS_B1, ranks idle and rank edges among them), for each
+    (q, cache) dtype pair; a lane alone against the same lane inside B=16,
+    and B=16 in clusters of 8 and alone with 1 .. 4 teams against its own
+    plan (bit for bit); one
+    call replayed from a CUDA graph against eager; then at B in
+    DECODE_TIMED_BATCHES, every lane at pos 255 / 511 / 767 (B = 16 also at
+    the batcher's pos 64 / 128), bf16 and e4m3fn caches: cold and warm
+    device us as phase 3, the bound, the plain route in a CUDA graph and, on
+    the bf16 cache, F.scaled_dot_product_attention with a boolean mask (timed
+    only; the port never calls it), in turns."""
     import torch.nn.functional as F
 
     from pocket_tts_tpu_torch.kernels import decode_attention as da
 
+    plans = _decode_plans(da)
     gd = torch.Generator(device=dev).manual_seed(0)
     worst, worst_abs, lines = 0.0, 0.0, []
     for b in DECODE_BATCHES:
         for q_dtype, kv_dtype in DECODE_DTYPES:
             errs, bounds = [], []
-            for shift in range(len(DECODE_POS) if b == 1 else 1):
-                pos_values = DECODE_POS[shift:] + DECODE_POS[:shift]
+            for pos_values in ([(p,) for p in DECODE_POS_B1] if b == 1 else [DECODE_POS]):
                 q, k, v, pos = _decode_inputs(gd, b, q_dtype, kv_dtype, pos_values, dev)
                 got = da.decode_attention(q, k, v, pos)
                 torch.cuda.synchronize()
@@ -494,12 +536,14 @@ def phase_decode_kernel(dev) -> dict:
             lines.append(f"B={b} {str(q_dtype)[6:]}/{str(kv_dtype)[6:]} {max(errs):.2e} (bound "
                          f"median {bound.median().item():.2e}, max {bound.max().item():.2e})")
     print("kernel decode_attention vs plain (S=1024 H=16 D=64, per-slot pos over "
-          f"{DECODE_POS}; each element within its error_bound: f32 1e-5 max(1, max|out|), bf16 "
+          f"{DECODE_POS}, B=1 at each of {DECODE_POS_B1}; each element within its error_bound: "
+          "f32 1e-5 max(1, max|out|), bf16 "
           f"derived from the inputs; worst err / bound {worst:.3f}): " + "; ".join(lines))
     print("kernel decode_attention: the bf16 bound at B=16 rejects the plain output with the "
           "query's own key dropped (every lane with 1 <= pos < S) and the kernel's output "
           "scaled by 0.98 (every lane)")
 
+    s, h, d = DECODE_SHAPE
     for kv_dtype in (torch.bfloat16, torch.float8_e4m3fn):
         q, k, v, pos = _decode_inputs(gd, 16, torch.bfloat16, kv_dtype, DECODE_POS, dev)
         batched = da.decode_attention(q, k, v, pos)
@@ -508,6 +552,13 @@ def phase_decode_kernel(dev) -> dict:
             _require(torch.equal(alone[0], batched[b]),
                      f"decode_attention {kv_dtype}: lane {b} alone differs from inside B=16")
         _require(torch.equal(da.decode_attention(q, k, v, pos), batched), "run to run")
+        ranks = da.launch_plan(16, s, h, d, (q.dtype, kv_dtype)).ranks
+        schedules = [da.launch_plan(16, s, h, d, (q.dtype, kv_dtype), cluster=ranks)]
+        schedules += [da.launch_plan(16, s, h, d, (q.dtype, kv_dtype), cluster=1, teams=t)
+                      for t in range(1, min(ranks, da.SOLO_TEAMS) + 1)]
+        for plan in schedules:
+            _require(torch.equal(da._launch(da._load(), q, k, v, pos, plan), batched),
+                     f"decode_attention {kv_dtype}: B=16 on {plan} differs")
     holder = {}
     graph = _capture(lambda: holder.__setitem__("out", da.decode_attention(q, k, v, pos)))
     pos.add_(3)  # pos is read on the device: the replay follows it
@@ -520,7 +571,7 @@ def phase_decode_kernel(dev) -> dict:
     graph.reset()
     print("kernel decode_attention: lanes 0, 2, 3, 4, 15 alone (B=1) == the same lanes inside "
           "B=16 (pos 0, 511, 1023, 1029, 1029), bf16 and e4m3fn caches, bit for bit; B=16 "
-          "bit-identical run to run; one call captured in a CUDA graph replays to the eager "
+          "bit-identical run to run, in clusters of 8 and alone with 1 .. 4 teams; one call captured in a CUDA graph replays to the eager "
           "result after pos moved, bit for bit")
 
     flush_buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
@@ -531,7 +582,7 @@ def phase_decode_kernel(dev) -> dict:
     cells, library_error = {}, None
     for b in DECODE_TIMED_BATCHES:
         for kv_dtype in (torch.bfloat16, torch.float8_e4m3fn):
-            for p in DECODE_TIMED_POS:
+            for p in (DECODE_BATCHER_POS if b > 1 else ()) + DECODE_TIMED_POS:
                 q, k, v, pos = _decode_inputs(gd, b, torch.bfloat16, kv_dtype, (p,), dev)
                 fns = {"kernel": lambda: da.decode_attention(q, k, v, pos),
                        "plain": lambda: da.decode_attention_reference(q, k, v, pos)}
@@ -560,7 +611,8 @@ def phase_decode_kernel(dev) -> dict:
               f"{r['bound_by']}, share {r['share_cold']:.4f} cold / {r['share_warm']:.4f} warm; "
               f"plain route in a CUDA graph {r['plain_cold_us']:.3f}/{r['plain_warm_us']:.3f} "
               f"us; wrapper {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}")
-    return {"worst_err_over_tol": worst, "max_abs_err": worst_abs, "cells": cells}
+    return {"worst_err_over_tol": worst, "max_abs_err": worst_abs, "cells": cells,
+            "plans": plans}
 
 
 def _attn_reset() -> None:
@@ -926,6 +978,8 @@ def _kernel_profile(run, eng, what: str, smi: str) -> dict:
     if not kernels:
         print(f"profile {what}: not measured (the trace holds no device events)")
         return {}
+    # decode_attention_kernel (clusters) or decode_attention_solo_kernel
+    attn = [float(e["dur"]) / 1e3 for e in kernels if "decode_attention" in e["name"]]
     share = (busy / frames) / (wall / unprofiled)
     print(f"profile {what} [{smi}]: {frames} frames; device busy {busy:.2f} ms = "
           f"{busy / frames:.4f} ms per frame over an unprofiled wall of {wall:.1f} ms for "
@@ -933,9 +987,13 @@ def _kernel_profile(run, eng, what: str, smi: str) -> dict:
           f"{share:.3f}; "
           f"{len(kernels) / frames:.1f} kernel launches per frame; top kernels (device ms per "
           f"frame): " + "; ".join(f"{n} {ms / frames:.4f}" for n, ms in top))
+    print(f"profile {what} [{smi}]: decode_attention kernels {sum(attn) / frames:.4f} device "
+          f"ms per frame, {len(attn) / frames:.2f} launches per frame")
     return {"frames": frames, "busy_ms": busy, "wall_ms": wall, "busy_share": share,
             "launches_per_frame": len(kernels) / frames,
-            "top_ms_per_frame": {n: ms / frames for n, ms in top}}
+            "top_ms_per_frame": {n: ms / frames for n, ms in top},
+            "decode_attention_ms_per_frame": sum(attn) / frames,
+            "decode_attention_launches_per_frame": len(attn) / frames}
 
 
 def _batch_exactness():
@@ -2671,6 +2729,7 @@ def _decode_entry(dec: dict, attn: dict, profiles: dict) -> dict:
         "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"],
         "library_ms": main.get("library_ms"),
         "cells": cells,
+        "plans": dec["plans"],
         "profiles": profiles,
     }
 

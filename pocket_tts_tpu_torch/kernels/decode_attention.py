@@ -11,11 +11,12 @@ D] (float32, bfloat16, float8_e4m3fn or float8_e5m2).
 
 * CPU tensors run :func:`decode_attention_reference`, the plain version
   (``ops.sdpa.sdpa`` with the causal mask, as before the kernel).
-* CUDA tensors launch the kernel, one CTA per (b, h) as :func:`launch_plan`
-  says; ``decode_attention.launches`` counts the launches.  A CUDA call the
-  kernel cannot take (another dtype, a head width whose rows are not 16 x a
-  power of two bytes, S over :data:`MAX_POSITIONS`, strides) raises, as does
-  a call under autograd.
+* CUDA tensors launch the kernel as :func:`launch_plan` says: the live keys
+  split over logical ranks by :func:`rank_split`, taken by a thread-block
+  cluster of one CTA a rank (a small B x H) or by one CTA alone per (b, h);
+  ``decode_attention.launches`` counts the launches.  A CUDA call the kernel cannot take (another dtype, a head width
+  whose rows are not 16 x a power of two bytes, S over
+  :data:`MAX_POSITIONS`, strides) raises, as does a call under autograd.
 
 ``ops.attention.causal_cache_attention`` sends every T = 1 call here and
 counts its T > 1 calls on CUDA (prefills) in ``decode_attention.large_t``.
@@ -37,12 +38,17 @@ from pocket_tts_tpu_torch.kernels import build as build_mod
 from pocket_tts_tpu_torch.ops.sdpa import FP8_DTYPES, sdpa
 
 SOURCE = build_mod.PKG / "csrc" / "decode_attention.cu"
-WARPS = 8  # warps per CTA (kWarps)
-THREADS = 32 * WARPS
-UNROLL = 8  # 16-byte loads in flight a lane (kUnroll)
-MAX_POSITIONS = 8192  # logits held in shared memory (kMaxPositions)
+WARPS = 4  # warps of a team, which takes one logical rank at a time (kWarps)
+THREADS = 32 * WARPS  # threads of a team (kThreads)
+SOLO_TEAMS = 4  # teams of a CTA that takes a (b, h) alone (kSoloTeams)
+MAX_CLUSTER = 8  # CTAs per (b, h), the portable cluster size, and logical ranks (kMaxCluster)
+MIN_KEYS_PER_RANK = 128  # keys a logical rank takes before the next one joins
+CTA_TARGET = 256  # the most CTAs a launch of clusters takes (launch_plan)
+RING_BYTES = 64 * 1024  # K/V staging of a cluster CTA (kRingBytes)
+RING_STAGES = 4  # ring depth where the tiles do not fit at once (kRingStages)
+MAX_POSITIONS = 8192  # kMaxPositions
 MAX_DIM = 256  # kMaxDim
-MAX_SMEM_BYTES = 48 * 1024  # static limit of a launch without the opt-in
+MAX_SMEM_BYTES = 227 * 1024  # dynamic shared memory a CTA may opt into (kMaxSmem)
 Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 
@@ -56,43 +62,88 @@ def build():
     return build_mod.build(SOURCE, "decode_attention")
 
 
+def _bind(lib):
+    """``lib.pt_decode_attention`` with its C signature."""
+    fn = lib.pt_decode_attention
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.pt_decode_attention
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-                           + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
-                           + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = _bind(ctypes.CDLL(str(build())))
     return _lib
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """One launch: ``grid`` = B x H CTAs of :data:`THREADS` threads, CTA
-    ``b * H + h`` for lane b, head h.  ``lanes_per_key`` lanes share a key's
-    row, 16 bytes each; lane (seg, l) of warp w reads key ``j0 + u *
-    keys_per_step + w * keys_per_warp + seg`` for u < :data:`UNROLL`, j0 in
-    steps of ``keys_per_pass``.  ``smem`` bytes of dynamic shared memory
-    (logits, the warps' partial rows, two reduction slots a warp).
-    Everything but ``grid`` depends on (S, D, the cache type) alone."""
+    """One launch.  The order: :func:`rank_split` gives each of ``ranks``
+    logical ranks its keys (at least ``min_keys`` a rank, at most
+    ``keys_per_rank``); a team of :data:`WARPS` warps takes a rank, lane
+    (seg, l) of warp w the keys ``j0 + w * keys_per_warp + seg + m *
+    keys_per_step`` of rank [j0, j1) in order for its V row,
+    ``lanes_per_key`` lanes a key's row, 16 bytes each.
+
+    The schedule: ``cluster`` = ``ranks``: ``grid`` = B x H x ranks CTAs of
+    :data:`THREADS` threads in clusters of ``ranks`` (cluster ``b * H + h``
+    for lane b, head h; CTA r takes rank r), each rank's keys through tiles
+    of ``tile`` keys, K tiles then V tiles, tile i in ring buffer i %
+    ``stages``; within a tile lane (seg, l) of warp w takes key ``jt0 + w *
+    keys_per_warp + seg``, jt0 in steps of ``keys_per_step``.  ``cluster`` =
+    1: ``grid`` = B x H CTAs alone of ``teams`` teams (``threads``), team t
+    the ranks t, t + teams, ...; the K and V rows read straight into
+    registers (``tile``, ``stages`` 0).  ``smem`` bytes of dynamic shared
+    memory.
+
+    ``ranks``, ``min_keys``, ``keys_per_rank`` and the lanes' layout, which
+    fix the order of every sum, depend on (S, D, the cache type) alone; the
+    schedule follows B x H and never changes a bit of the output."""
 
     grid: int
+    cluster: int
+    ranks: int
+    min_keys: int
+    teams: int
+    threads: int
     lanes_per_key: int
     keys_per_warp: int
     keys_per_step: int
-    keys_per_pass: int
     values_per_lane: int
+    keys_per_rank: int
+    tile: int
+    stages: int
     smem: int
 
 
+def recv_floats(d: int, ranks: int) -> int:
+    """Floats of the partial rows pushed to one cluster CTA, for any R <=
+    ranks ranks with keys (``recv_floats`` of the ``.cu``)."""
+    return -(-WARPS * (d + ranks - 1) // 4) * 4
+
+
+def solo_bytes(room: int, d: int, slots: int) -> int:
+    """Shared bytes of the CTA-alone body (``solo_floats`` of the ``.cu``):
+    the logits of ``room`` keys, ``slots`` ranks' (rank, warp) rows, the
+    warps' maxima and the ranks' warps' sums."""
+    return (-(-room // 4) * 4 + slots * WARPS * d + (SOLO_TEAMS + MAX_CLUSTER) * WARPS) * 4
+
+
 @functools.lru_cache(maxsize=None)
-def launch_plan(b: int, s: int, h: int, d: int, dtypes: tuple) -> LaunchPlan:
+def launch_plan(b: int, s: int, h: int, d: int, dtypes: tuple, cluster: int | None = None,
+                min_keys: int = MIN_KEYS_PER_RANK, teams: int | None = None) -> LaunchPlan:
     """The launch for q [b, 1, h, d] against caches [b, s, h, d]; ``dtypes``
-    = (q's dtype, the caches' dtype).  No card needed; raises ValueError for
+    = (q's dtype, the caches' dtype).  ``cluster``: ``ranks`` (a cluster of
+    one CTA a rank) while b x h x ranks <= CTA_TARGET (a short batch:
+    latency rules), else 1 (a CTA alone per (b, h): bytes rule); the other
+    value gives the same outputs, bit for bit.  ``teams``: teams of the CTA
+    alone, by default min(ranks, SOLO_TEAMS) (1 in a cluster).
+    ``min_keys``: the keys a logical rank takes before the next joins (a
+    change of it changes the order).  No card needed; raises ValueError for
     a call the kernel does not take."""
     q_dtype, kv_dtype = dtypes
     if q_dtype not in Q_KINDS or kv_dtype not in KV_KINDS:
@@ -101,17 +152,53 @@ def launch_plan(b: int, s: int, h: int, d: int, dtypes: tuple) -> LaunchPlan:
                          f"{sorted(map(str, KV_KINDS))}")
     if b < 1 or h < 1 or not 1 <= s <= MAX_POSITIONS:
         raise ValueError(f"decode_attention: B={b} H={h} S={s}; the kernel takes 1 <= S <= "
-                         f"{MAX_POSITIONS} positions (logits in shared memory)")
+                         f"{MAX_POSITIONS} positions")
     es = kv_dtype.itemsize
-    lanes, rem = divmod(d * es, 16)
+    row = d * es
+    lanes, rem = divmod(row, 16)
     if rem or not 1 <= lanes <= 32 or lanes & (lanes - 1) or d > MAX_DIM:
         raise ValueError(f"decode_attention: rows of D={d} x {es} bytes; the kernel takes "
                          f"16 x a power of two up to 512 bytes and D <= {MAX_DIM}")
     kpw = 32 // lanes
-    smem = (s + WARPS * d + 2 * WARPS) * 4  # <= 41 KB at S 8192, D 256: no opt-in needed
-    return LaunchPlan(grid=b * h, lanes_per_key=lanes, keys_per_warp=kpw,
-                      keys_per_step=WARPS * kpw, keys_per_pass=UNROLL * WARPS * kpw,
-                      values_per_lane=16 // es, smem=smem)
+    kps = WARPS * kpw
+    ranks = min(MAX_CLUSTER, -(-s // min_keys))
+    if cluster is None:
+        cluster = ranks if b * h * ranks <= CTA_TARGET else 1
+    if cluster not in (1, ranks):
+        raise ValueError(f"decode_attention: a cluster of {cluster} CTAs over {ranks} ranks; "
+                         f"the kernel takes one CTA a rank or a CTA alone")
+    solo = cluster == 1
+    most = min(ranks, SOLO_TEAMS) if solo else 1
+    teams = most if teams is None else teams
+    if not 1 <= teams <= most:
+        raise ValueError(f"decode_attention: {teams} teams a CTA in clusters of {cluster}")
+    # the largest share rank_split gives a rank at any n <= s
+    kpr = max(min(s, min_keys), -(-s // ranks))
+    if solo:  # no staging: the logits, the (rank, warp) rows, the reductions
+        tile, stages = 0, 0
+        smem = solo_bytes(s, d, ranks)
+    else:
+        if 2 * kpr * row <= RING_BYTES:  # a rank's K and V: one buffer each
+            tile, stages = kpr, 2
+        else:  # whole steps of keys a tile, through a ring
+            tile, stages = RING_BYTES // (RING_STAGES * row) // kps * kps, RING_STAGES
+        smem = stages * tile * row + (-(-kpr // 4) * 4 + recv_floats(d, ranks) + 2 * WARPS
+                                      + 2 * MAX_CLUSTER) * 4 + 3 * 8
+        # a lone rank (a short cache) goes through the CTA-alone body
+        smem = max(smem, solo_bytes(kpr, d, 1))
+    return LaunchPlan(grid=b * h * cluster, cluster=cluster, ranks=ranks, min_keys=min_keys,
+                      teams=teams, threads=THREADS * teams, lanes_per_key=lanes,
+                      keys_per_warp=kpw, keys_per_step=kps, values_per_lane=16 // es,
+                      keys_per_rank=kpr, tile=tile, stages=stages, smem=smem)
+
+
+def rank_split(n: int, ranks: int, min_keys: int = MIN_KEYS_PER_RANK) -> list[tuple[int, int]]:
+    """Keys [j0, j1) of each of ``ranks`` logical ranks for n live keys, as
+    the kernel splits them: the first R = min(ranks, ceil(n / min_keys))
+    take [r n / R, (r + 1) n / R); the others none."""
+    busy = min(ranks, -(-n // min_keys))
+    return [(r * n // busy, (r + 1) * n // busy) if r < busy else (n, n)
+            for r in range(ranks)]
 
 
 def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -210,6 +297,29 @@ def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                          f"contiguous, one 16-byte aligned batch stride, and D contiguous in q")
 
 
+def _launch(lib, q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            pos: torch.Tensor, plan: LaunchPlan) -> torch.Tensor:
+    """One launch of ``lib``'s kernel as ``plan`` (a :func:`launch_plan` of
+    these shapes) says, on q's current stream; raises if the launch fails.
+    Counts nothing; the tests and scripts/ time and compare plans with it."""
+    b, _, h, d = q.shape
+    s = k_cache.shape[1]
+    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pt_decode_attention(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+            int(pos.dtype == torch.int64), out.data_ptr(), b, s, h, d, q.stride(0), q.stride(2),
+            k_cache.stride(0), Q_KINDS[q.dtype], KV_KINDS[k_cache.dtype], plan.cluster,
+            plan.ranks, plan.min_keys, plan.teams, plan.lanes_per_key, plan.keys_per_rank,
+            plan.tile, plan.stages, plan.smem, 1.0 / math.sqrt(d), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention: CUDA launch failed with error {err} (B={b} S={s} "
+                           f"H={h} D={d} q {q.dtype} cache {k_cache.dtype}, grid {plan.grid} in "
+                           f"clusters of {plan.cluster}, {plan.smem} bytes of shared memory)")
+    return out
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      pos: torch.Tensor) -> torch.Tensor:
     """Attention of q [B, 1, H, D] at positions ``pos`` [B] against the caches
@@ -226,20 +336,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                            "kernels.decode_attention.decode_attention_reference")
     _check(q, k_cache, v_cache, pos)
     b, _, h, d = q.shape
-    s = k_cache.shape[1]
-    plan = launch_plan(b, s, h, d, (q.dtype, k_cache.dtype))
-    lib = _load()
-    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.pt_decode_attention(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-            int(pos.dtype == torch.int64), out.data_ptr(), b, s, h, d, q.stride(0), q.stride(2),
-            k_cache.stride(0), Q_KINDS[q.dtype], KV_KINDS[k_cache.dtype], plan.lanes_per_key,
-            plan.keys_per_warp, plan.smem, 1.0 / math.sqrt(d), stream)
-    if err != 0:
-        raise RuntimeError(f"decode_attention: CUDA launch failed with error {err} (B={b} S={s} "
-                           f"H={h} D={d} q {q.dtype} cache {k_cache.dtype}, grid {plan.grid})")
+    plan = launch_plan(b, k_cache.shape[1], h, d, (q.dtype, k_cache.dtype))
+    out = _launch(_load(), q, k_cache, v_cache, pos, plan)
     with _count_lock:
         decode_attention.launches += 1
     return out

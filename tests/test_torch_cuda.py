@@ -528,8 +528,11 @@ def test_bank_lane_matches_merged_stream_on_cuda(cuda_device):
 DECODE_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float8_e4m3fn),
                  (torch.bfloat16, torch.float8_e5m2), (torch.bfloat16, torch.float32),
                  (torch.float32, torch.float32), (torch.float32, torch.float8_e4m3fn)]
-# (B, S, H, D): the flagship's heads at a short cache, an odd S, a narrow head
-DECODE_SHAPES = [(6, 1024, 16, 64), (5, 300, 3, 64), (3, 64, 2, 32)]
+# (B, S, H, D): the flagship's heads at a short cache, an odd S, a narrow
+# head (clusters of 2), a cluster of one CTA, a share streamed through the
+# ring of tiles
+DECODE_SHAPES = [(6, 1024, 16, 64), (5, 300, 3, 64), (3, 64, 2, 32), (3, 7, 2, 16),
+                 (4, 8192, 2, 64)]
 
 
 def _decode_case(device, b, s, h, d, q_dtype, kv_dtype, seed):
@@ -562,11 +565,60 @@ def test_decode_attention_kernel_matches_plain_on_cuda(cuda_device, b, s, h, d, 
     assert ((got.double() - ref.double()).abs() <= da.error_bound(q, k, v, pos, ref)).all()
 
 
+@pytest.mark.parametrize("q_dtype,kv_dtype", DECODE_DTYPES)
+def test_decode_attention_idle_ranks_and_rank_edges_on_cuda(cuda_device, q_dtype, kv_dtype):
+    """pos that leave ranks without keys (0 .. 7, 31 .. 33, 100), ranks
+    joining at 128, 256 and 384 keys (127 / 128 / 129, 255 / 256 / 257,
+    383 / 384 / 385): each element within da.error_bound, at the plan's
+    schedule, at a cluster of 8 (one CTA a rank, CTAs idle) and at a CTA
+    alone (every rank), the three bit-identical."""
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+
+    pos_values = [0, 1, 2, 7, 31, 32, 33, 100, 127, 128, 129, 255, 256, 257, 383, 384, 385,
+                  1023]
+    b = len(pos_values)
+    q, k, v, _ = _decode_case(cuda_device, b, 1024, 16, 64, q_dtype, kv_dtype, 8)
+    pos = torch.tensor(pos_values, dtype=torch.int32, device=cuda_device)
+    got = da.decode_attention(q, k, v, pos)
+    ref = da.decode_attention_reference(q, k, v, pos)
+    assert ((got.double() - ref.double()).abs() <= da.error_bound(q, k, v, pos, ref)).all()
+    for c in (8, 1):
+        plan = da.launch_plan(b, 1024, 16, 64, (q_dtype, kv_dtype), cluster=c)
+        assert torch.equal(da._launch(da._load(), q, k, v, pos, plan), got)
+
+
+@pytest.mark.parametrize("b,s,h,d", DECODE_SHAPES)
+def test_decode_attention_any_cluster_is_bit_identical_on_cuda(cuda_device, b, s, h, d):
+    """The order is fixed by the logical ranks: a cluster of one CTA a rank
+    and a CTA alone with 1 .. 4 teams give the same bits, bf16 and f32 q;
+    so do they all with ranks of 32 keys (lanes without keys in a team's
+    first rank), within the bound."""
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+
+    lib = da._load()
+    for q_dtype, kv_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)):
+        q, k, v, pos = _decode_case(cuda_device, b, s, h, d, q_dtype, kv_dtype, 2 * b + s)
+        want = da.decode_attention(q, k, v, pos)
+        for mk in (da.MIN_KEYS_PER_RANK, 32):
+            ranks = da.launch_plan(b, s, h, d, (q_dtype, kv_dtype), min_keys=mk).ranks
+            plans = [da.launch_plan(b, s, h, d, (q_dtype, kv_dtype), cluster=1, min_keys=mk,
+                                    teams=t) for t in range(1, min(ranks, da.SOLO_TEAMS) + 1)]
+            plans.append(da.launch_plan(b, s, h, d, (q_dtype, kv_dtype), cluster=ranks,
+                                        min_keys=mk))
+            outs = [da._launch(lib, q, k, v, pos, plan) for plan in plans]
+            if mk == da.MIN_KEYS_PER_RANK:
+                assert torch.equal(outs[0], want)
+            ref = da.decode_attention_reference(q, k, v, pos)
+            assert ((outs[0].double() - ref.double()).abs()
+                    <= da.error_bound(q, k, v, pos, ref)).all()
+            assert all(torch.equal(o, outs[0]) for o in outs), plans
+
+
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
 def test_decode_attention_lane_is_bit_identical_at_any_batch(cuda_device, kv_dtype):
     """Every sum's order depends on (n, S, D, the cache type) alone: a lane
-    alone (B = 1) equals the same lane inside B = 16, bit for bit, and a
-    call repeats bit for bit."""
+    alone (B = 1, clusters of 8) equals the same lane inside B = 16 (a CTA
+    alone per (b, h)), bit for bit, and a call repeats bit for bit."""
     from pocket_tts_tpu_torch.kernels import decode_attention as da
 
     q, k, v, pos = _decode_case(cuda_device, 16, 1024, 16, 64, torch.bfloat16, kv_dtype, 3)
