@@ -41,6 +41,23 @@ result line):
    launches per frame.  Every path from here on checks its
    ``decode_attention`` launches against its decoded frames x 6 layers
    (summed over dispatches on the batcher) and prints ``large_t``.
+4b. Segment: whole-utterance ``generate`` through ``Engine.decode_segment``
+   (``segment_dispatch="auto"``, the default) on the main path's model,
+   against a ``segment_dispatch="chunked"`` clone at temp 0.  (a) EOS
+   unreachable (threshold 1e9): every segment fused, frames decoded =
+   frames emitted, against the chunk schedule's decoded frames.  (b) A
+   threshold between two of the first segment's temp-0 EOS logits, crossed
+   nearest mid-budget, with the default ``frames_after_eos`` and with 0:
+   each segment's n_valid the stop rule's, at most SEGMENT_POLL +
+   SEGMENT_MAX_LAG frames decoded past it.  Every run: equal frame counts
+   and audio within ``REF_TOL_LSB``, flow_blocks launches = frames decoded x
+   lsd_decode_steps and decode_attention launches = frames decoded x layers.
+   (d) Wall ms per frame and x-realtime, fused and chunked in turns.  (e) A
+   YAML variant (the flagship's file plus a ``segment_buckets`` override) in
+   a temporary ./config/ loaded with ``TTSModel.load`` on the card and
+   generated in the override's bucket; ``save_checkpoint`` ->
+   ``load_with_params`` bit-identical at temp 0; ``mimi.decode_batch``
+   against the streaming decode within 2e-4.
 5. Reference: a few frames of the full-width model in float32 on the card
    against the same model on the CPU (plain versions everywhere).
 6. Voice: voice-conditioned synthesis on the same model.  A seeded synthetic
@@ -720,6 +737,301 @@ def phase_main_path(smi: str):
                               f"B=1 (generate {NARROW_TEXT!r})", smi)
     model.gen = saved
     return model, launches, attn, profile
+
+
+# -- phase 4b: the fused segment decode ------------------------------------------
+
+SEGMENT_UNREACHABLE = 1e9  # a finite EOS threshold no logit reaches: the fused path, full budget
+DECODE_BATCH_TOL = 2e-4  # Mimi decode, f32 both ways (tests/test_mimi_parity.py)
+
+
+class _SegmentCalls:
+    """Records each ``decode_segment`` call of an engine (wrapping it on the
+    instance until ``close``): bucket, max_frames, frames_after_eos, frames
+    decoded, n_valid, eos_step."""
+
+    def __init__(self, eng):
+        self.eng, self.calls = eng, []
+        orig = eng.decode_segment
+
+        def decode_segment(state, gen, generator, **kw):
+            frames = eng.frames_decoded
+            out = orig(state, gen, generator, **kw)
+            self.calls.append({"bucket": kw["bucket"], "mf": kw["max_frames"],
+                               "fae": kw["frames_after_eos"],
+                               "decoded": eng.frames_decoded - frames, "n_valid": out[2],
+                               "eos_step": out[3]})
+            return out
+
+        eng.decode_segment = decode_segment
+
+    def close(self):
+        del self.eng.decode_segment
+
+
+def _segment_eos_logits(model, text: str) -> np.ndarray:
+    """EOS logits of ``text``'s first segment at temp 0 over its budget,
+    from the frame step alone (the same steps generate runs)."""
+    from pocket_tts_tpu_torch import text as text_mod
+    from pocket_tts_tpu_torch.models import flow_lm, flow_mlp
+
+    eng = model.engine
+    first = model.split_into_best_sentences(text)[0]
+    prepared, _ = text_mod.prepare_text_prompt(first)
+    tokens, n_tokens = text_mod.tokens_array(model.tokenizer, prepared)
+    st = eng.prefill_tokens(eng.reset_for_segment(model.get_voice_state().as_dict()), tokens,
+                            n_tokens)
+    params = eng.params["flow_lm"]
+    table = flow_mlp.time_embedding_table(params["flow"], 1)
+    zero = torch.zeros(1, eng.ldim, device=eng.device)
+    pos, latent, logits = st["pos"], st["latent"], []
+    for _ in range(model.estimate_generation_steps(first)):
+        latent, logit, _, _, pos = flow_lm.step(params, eng.cfg, st["kc"], st["vc"], pos, latent,
+                                                zero, table, 1)
+        logits.append(logit[0])
+    return torch.stack(logits).float().cpu().numpy()
+
+
+def _segment_run(model, text: str, fae=None) -> dict:
+    """One counted, timed ``generate``: audio, wall ms, frames decoded,
+    flow_blocks and decode_attention launches, the decode_segment calls."""
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+
+    eng = model.engine
+    calls = _SegmentCalls(eng)
+    torch.cuda.synchronize()
+    fb.flow_blocks.launches = 0
+    _attn_reset()
+    eng.frames_decoded = eng.flow_evals = 0
+    try:
+        audio, ms = _timed(lambda: model.generate(text, frames_after_eos=fae))
+    finally:
+        calls.close()
+    return {"audio": audio, "ms": ms, "frames": audio.size // model.frame_size,
+            "decoded": eng.frames_decoded, "flow": fb.flow_blocks.launches,
+            "attn": da.decode_attention.launches, "calls": calls.calls}
+
+
+def _segment_pair(model, chunked, text: str, what: str, fae=None) -> tuple[dict, dict]:
+    """The fused run and the chunk schedule's on one text: equal frame
+    counts, audio within REF_TOL_LSB, every segment fused, launches = frames
+    decoded x steps (flow_blocks) and x layers (decode_attention), at most
+    SEGMENT_POLL + SEGMENT_MAX_LAG frames decoded past n_valid per segment,
+    n_valid the stop rule's."""
+    from pocket_tts_tpu_torch.runtime import engine
+
+    fused, ref = _segment_run(model, text, fae), _segment_run(chunked, text, fae)
+    layers = model.config.flow_lm.transformer.num_layers
+    lsd = model.gen.lsd_decode_steps
+    n_seg = len(model.split_into_best_sentences(text))
+    bound = engine.SEGMENT_POLL + engine.SEGMENT_MAX_LAG
+    _require(len(fused["calls"]) == n_seg and not ref["calls"],
+             f"{what}: {len(fused['calls'])} fused segments of {n_seg}, "
+             f"{len(ref['calls'])} on the chunked clone")
+    for c in fused["calls"]:
+        want = c["mf"] if c["eos_step"] < 0 else min(c["mf"], c["eos_step"] + c["fae"])
+        _require(c["n_valid"] == want and 0 <= c["decoded"] - c["n_valid"] <= bound,
+                 f"{what}: segment {c} breaks the stop rule or the {bound}-frame bound")
+    _require(fused["frames"] == ref["frames"] > 0 and fused["audio"].shape == ref["audio"].shape,
+             f"{what}: fused {fused['frames']} frames vs chunked {ref['frames']}")
+    lsb = int(np.abs(_pcm(fused["audio"]) - _pcm(ref["audio"])).max())
+    _require(lsb <= REF_TOL_LSB, f"{what}: fused vs chunked differ by {lsb} int16 LSB")
+    _require(fused["frames"] == sum(c["n_valid"] for c in fused["calls"]),
+             f"{what}: emitted {fused['frames']} != the segments' n_valid")
+    for r in (fused, ref):
+        _require(r["flow"] == r["decoded"] * lsd and r["attn"] == r["decoded"] * layers,
+                 f"{what}: launches flow_blocks {r['flow']} / decode_attention {r['attn']} != "
+                 f"{r['decoded']} frames x {lsd} / x {layers}")
+    over = [c["decoded"] - c["n_valid"] for c in fused["calls"]]
+    print(f"segment: {what}: fused {fused['frames']} frames emitted, {fused['decoded']} decoded "
+          f"(past n_valid per segment {over}, bound {bound}), buckets "
+          f"{[c['bucket'] for c in fused['calls']]}, EOS frames "
+          f"{[c['eos_step'] for c in fused['calls']]}; chunked {ref['frames']} emitted, "
+          f"{ref['decoded']} decoded; audio within {lsb} int16 LSB (bound {REF_TOL_LSB}); "
+          f"flow_blocks {fused['flow']} = decoded x {lsd}, decode_attention {fused['attn']} = "
+          f"decoded x {layers}")
+    return fused, ref
+
+
+def _host_waits(run) -> dict:
+    """The host's blocking waits on the device (stream, event and device
+    synchronizes, as ``torch.profiler`` records the CUDA runtime calls)
+    while ``run()`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.key in names}
+
+
+def _segment_loader(model) -> None:
+    """(e) a YAML variant (the flagship's file plus a runtime override) from
+    ./config/, loaded and generated on the model's device; a save_checkpoint
+    -> load_with_params round trip through ./tts_<variant>.safetensors,
+    bit-identical at temp 0; decode_batch against the streaming decode."""
+    import os
+
+    from pocket_tts_tpu_torch import TTSModel, config, weights
+    from pocket_tts_tpu_torch.models import mimi
+
+    eng, dev = model.engine, model.device
+    override = (64, 128, 256, 448, 704)
+    base = config.find_config_path(config.DEFAULT_VARIANT).read_text()
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "config").mkdir()
+        (Path(tmp) / "config" / "smoke_variant.yaml").write_text(
+            base + f"\nruntime:\n  segment_buckets: {list(override)}  # a runtime override\n")
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            variant = TTSModel.load("smoke_variant", temp=0.0, eos_threshold=SEGMENT_UNREACHABLE,
+                                    device=dev)
+            load_s = time.perf_counter() - t0
+            _require(variant.config.runtime.segment_buckets == override
+                     and variant.config.flow_lm == model.config.flow_lm
+                     and variant.config.mimi == model.config.mimi
+                     and not variant.has_real_weights, f"smoke_variant: {variant.config}")
+            run = _segment_run(variant, NARROW_TEXT)
+            _require([c["bucket"] for c in run["calls"]] == [64]
+                     and run["frames"] == _budget(variant, NARROW_TEXT),
+                     f"smoke_variant: buckets {[c['bucket'] for c in run['calls']]}")
+            print(f"segment: YAML variant from ./config/ (the flagship's file + "
+                  f"runtime.segment_buckets {list(override)}) loaded on {variant.device} in "
+                  f"{load_s:.2f} s; generate {NARROW_TEXT!r}: {run['frames']} frames in the "
+                  f"override's 64-frame bucket (128 without it)")
+            del variant
+
+            path = Path(tmp) / "tts_smoke_variant.safetensors"
+            t0 = time.perf_counter()
+            weights.save_checkpoint(model.params, model.config, path)
+            save_s, mib = time.perf_counter() - t0, path.stat().st_size / 2**20
+            t0 = time.perf_counter()
+            loaded = TTSModel.load_with_params("smoke_variant", temp=0.0,
+                                               eos_threshold=SEGMENT_UNREACHABLE, device=dev)
+            reload_s = time.perf_counter() - t0
+        finally:
+            os.chdir(here)
+    _require(loaded.has_real_weights, "save_checkpoint: ./tts_smoke_variant.safetensors not read")
+    saved, model.gen = model.gen, loaded.gen
+    try:
+        a, b = model.generate(NARROW_TEXT), loaded.generate(NARROW_TEXT)
+    finally:
+        model.gen = saved
+    _require(a.size > 0 and a.tobytes() == b.tobytes(),
+             "save_checkpoint -> load_with_params: temp-0 audio differs")
+    print(f"segment: save_checkpoint {mib:.1f} MiB in {save_s:.2f} s -> "
+          f"load_with_params in {reload_s:.2f} s: temp-0 generate bit-identical "
+          f"({a.size // model.frame_size} frames)")
+    del loaded
+
+    plans, params = eng.plans, eng.params["mimi"]
+    g = torch.Generator(device=dev).manual_seed(11)
+    lat = torch.randn(1, eng.ldim, 100, generator=g, device=dev)
+    st = mimi.init_decode_state(plans, 1, eng.codec_dtype, dev)
+    parts = []
+    for a, b in ((0, 2), (2, 18), (18, 82), (82, 100)):
+        y, st = mimi.decode_step(params, plans, st, lat[:, :, a:b])
+        parts.append(y)
+    stream = torch.cat(parts, -1)
+    whole = mimi.decode_batch(params, plans, lat)
+    err = (whole - stream).abs().max().item()
+    _require(whole.shape == stream.shape == (1, 1, 100 * model.frame_size)
+             and err <= DECODE_BATCH_TOL, f"decode_batch vs streaming: {err}")
+    print(f"segment: mimi.decode_batch of 100 frames vs the streaming decode (chunks 2 / 16 / "
+          f"64 / 18) on {dev}: max {err:.3g} (bound {DECODE_BATCH_TOL})")
+
+
+def phase_segment(model, smi: str) -> dict:
+    """Phase 4b: whole-utterance generate through ``Engine.decode_segment``
+    (the default, ``segment_dispatch="auto"``) against the chunk schedule
+    (a ``segment_dispatch="chunked"`` clone) at temp 0; returns the
+    fused runs' launches."""
+    from pocket_tts_tpu_torch import TTSModel
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+
+    t_phase = time.perf_counter()
+    saved = model.gen
+    cfg = model.config
+    # built from the placed weights, which its engine then shares
+    chunked = TTSModel(dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, segment_dispatch="chunked")), model.engine.params, gen=model.gen,
+        has_real_weights=False, device=model.device)
+    out = {"flow": 0, "attn": 0}
+
+    def both(gen):
+        model.gen = chunked.gen = gen
+
+    # (a) EOS unreachable: every segment fused, full budget
+    both(GenParams(temp=0.0, eos_threshold=SEGMENT_UNREACHABLE))
+    fused, ref = _segment_pair(model, chunked, TEXT, "(a) EOS unreachable")
+    _require(fused["decoded"] == fused["frames"] == _budget(model, TEXT),
+             f"(a): fused decoded {fused['decoded']} != emitted {fused['frames']}")
+    print(f"segment: (a) frames decoded {fused['decoded']} = emitted {fused['frames']} on the "
+          f"fused path; {ref['decoded']} on the chunk schedule")
+    out["flow"] += fused["flow"]
+    out["attn"] += fused["attn"]
+    turns = {"fused": [fused["ms"]], "chunked": [ref["ms"]]}
+
+    # (b) EOS reachable: a threshold halfway between two of the first
+    # segment's temp-0 EOS logits, first crossed nearest mid-budget
+    logits = _segment_eos_logits(model, TEXT)
+    values = sorted(set(logits.tolist()), reverse=True)
+    cands = [((hi + lo) / 2, int(np.argmax(logits > (hi + lo) / 2)))
+             for hi, lo in zip(values, values[1:])]
+    threshold, frame = min(cands, key=lambda c: abs(c[1] - logits.size // 2))
+    print(f"segment: (b) threshold {threshold:.6f}: the first segment's EOS logits cross it "
+          f"first at frame {frame} of {logits.size}")
+    both(GenParams(temp=0.0, eos_threshold=threshold))
+    for fae in (None, 0):
+        fused, _ = _segment_pair(model, chunked, TEXT, f"(b) EOS at frame {frame}, "
+                                 f"frames_after_eos {'default' if fae is None else fae}", fae)
+        _require(fused["calls"][0]["eos_step"] == frame,
+                 f"(b): first segment's EOS at {fused['calls'][0]['eos_step']} != {frame}")
+        out["flow"] += fused["flow"]
+        out["attn"] += fused["attn"]
+
+    # (d) wall time in turns (fused, chunked above; now chunked, fused), EOS unreachable
+    both(GenParams(temp=0.0, eos_threshold=SEGMENT_UNREACHABLE))
+    for path, m in (("chunked", chunked), ("fused", model)):
+        r = _segment_run(m, TEXT)
+        turns[path].append(r["ms"])
+    frames = _budget(model, TEXT)
+    secs = frames * model.frame_size / model.sample_rate
+    for path, ms in turns.items():
+        print(f"segment: (d) [{smi}] {path}: generate {frames} frames in "
+              f"{', '.join(f'{t:.1f}' for t in ms)} ms (turns fused, chunked, chunked, fused): "
+              f"ms per emitted frame {', '.join(f'{t / frames:.3f}' for t in ms)}, x-realtime "
+              f"{', '.join(f'{secs / (t / 1e3):.2f}' for t in ms)}")
+    out["turns_ms"] = turns
+
+    # (c2) no blocking read per frame: the fused run's host waits against the
+    # chunk schedule's on the same text (the prefills' waits are common to both)
+    from pocket_tts_tpu_torch.runtime import engine
+
+    waits = {path: _host_waits(lambda m=m: m.generate(NARROW_TEXT))
+             for path, m in (("fused", model), ("chunked", chunked))}
+    n = {path: sum(w.values()) for path, w in waits.items()}
+    frames = _budget(model, NARROW_TEXT)
+    allowed = n["chunked"] + -(-frames // engine.SEGMENT_MAX_LAG) + 1
+    _require(n["chunked"] > 0 and n["fused"] <= allowed,
+             f"fused generate waited on the device {n['fused']} times ({waits}) against "
+             f"{n['chunked']} on the chunk schedule: more than {allowed}")
+    print(f"segment: host waits on the device over a {frames}-frame generate (torch.profiler: "
+          f"stream / event / device synchronizes): fused {n['fused']} {waits['fused']}, chunked "
+          f"{n['chunked']} {waits['chunked']} (allowed for fused: {allowed})")
+
+    # (e) the loader, decode_batch and save_checkpoint on the card
+    model.gen = GenParams(temp=0.0, eos_threshold=SEGMENT_UNREACHABLE)
+    _segment_loader(model)
+    model.gen = saved
+    print(f"segment: flow_blocks launches {out['flow']}, decode_attention launches "
+          f"{out['attn']} over the fused runs of (a) and (b); phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def phase_reference():
@@ -1548,7 +1860,8 @@ class _ExpectedQlinear:
     """The qlinear launches the shape rule predicts for what an engine runs
     while it is watched: each frame's backbone, input and cond linears (B
     rows), each flow evaluation's in_w, final_ada_w and final_w, each codec
-    transformer call of 16 * K * B rows, each text prefill of B * bucket
+    transformer call of 16 * K * B rows (a fused segment's codec groups
+    too), each text prefill of B * bucket
     rows, each conditioning prefill of B * T rows and each voice encode of
     16 * frames * B rows (the codec's transformers run 16 positions per
     frame) when its rows are at most MAX_ROWS.  Counts the engine's calls by wrapping its
@@ -1575,8 +1888,8 @@ class _ExpectedQlinear:
         self.count = 0
         self.eng = eng
         buckets = eng._rcfg.text_buckets
-        self.names = ("decode_frames", "prefill_tokens", "admit_prefill_slot",
-                      "prefill_conditioning", "_encode")
+        self.names = ("decode_frames", "decode_segment", "prefill_tokens",
+                      "admit_prefill_slot", "prefill_conditioning", "_encode")
         orig = {name: getattr(eng, name) for name in self.names}
 
         def decode_frames(state, k, *a, **kw):
@@ -1587,6 +1900,15 @@ class _ExpectedQlinear:
                 self.count += k * (self.frame + steps * self.flow)
             if 16 * k * b <= self.max_rows:
                 self.count += self.codec
+            return out
+
+        def decode_segment(state, gen, generator, **kw):
+            frames = eng.frames_decoded
+            out = orig["decode_segment"](state, gen, generator, **kw)
+            self.count += (eng.frames_decoded - frames) * (
+                self.frame + gen.lsd_decode_steps * self.flow)
+            self.count += self.codec * sum(16 * k <= self.max_rows for _, k in
+                                           eng.segment_groups(kw["bucket"], out[2]))
             return out
 
         def prefill_tokens(state, tokens, n_valid):
@@ -1609,7 +1931,8 @@ class _ExpectedQlinear:
             self.count += self.encoder if rows <= self.max_rows else 0
             return orig["_encode"](audio)
 
-        for name, fn in (("decode_frames", decode_frames), ("prefill_tokens", prefill_tokens),
+        for name, fn in (("decode_frames", decode_frames), ("decode_segment", decode_segment),
+                         ("prefill_tokens", prefill_tokens),
                          ("admit_prefill_slot", admit_prefill_slot),
                          ("prefill_conditioning", prefill_conditioning), ("_encode", _encode)):
             setattr(eng, name, fn)
@@ -2705,7 +3028,7 @@ def _qlinear_entry(narrow: dict, serve: dict, train: dict) -> dict:
     }
 
 
-def _decode_entry(dec: dict, attn: dict, profiles: dict) -> dict:
+def _decode_entry(dec: dict, attn: dict, profiles: dict, launches_segment: int) -> dict:
     """The kernels line's decode_attention entry: the main path's numbers at
     B = 1 on the bf16 cache at pos 511, every timed cell, the launches and
     large_t of every path, and the two profiles."""
@@ -2723,6 +3046,7 @@ def _decode_entry(dec: dict, attn: dict, profiles: dict) -> dict:
                          "reached from causal_cache_attention at :82-100); no Pallas kernel",
         **{("launches" if path == "main" else f"launches_{path}"): a["launches"]
            for path, a in attn.items()},
+        "launches_segment": launches_segment,
         "large_t": {path: a["large_t"] for path, a in attn.items()},
         "max_abs_err": dec["max_abs_err"], "max_abs_err_over_tol": dec["worst_err_over_tol"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -2741,6 +3065,7 @@ def main() -> None:
     kern = phase_kernel(dev)
     dec = phase_decode_kernel(dev)
     model, launches, attn_main, profile_b1 = phase_main_path(smi)
+    segment = phase_segment(model, smi)
     phase_reference()
     voice_launches, attn_voice = phase_voice(model)
     batch = phase_batch(model, smi)
@@ -2755,7 +3080,8 @@ def main() -> None:
         "name": "flow_blocks", "route": "cuda",
         "source": "pocket_tts_tpu_torch/csrc/flow_blocks.cu",
         "replaces": "pocket_tts_tpu/ops/pallas/flow_kernel.py:107",
-        "launches": launches, "launches_voice": voice_launches,
+        "launches": launches, "launches_segment": segment["flow"],
+        "launches_voice": voice_launches,
         "launches_batch": batch_launches,
         "launches_serve": serve["flow_launches"],
         "launches_serve_quantized": serve["flow_launches_quantized"],
@@ -2774,7 +3100,7 @@ def main() -> None:
         "narrow": narrow["generate"]["int8+fp8"]["attn"], "fp8_voice": narrow["voice"]["attn"],
         "narrow_batch": narrow["batch"]["attn"], "serve": serve["attn"],
         "train_generate": train["full"]["attn"]},
-        {"b1": profile_b1, "b16": batch["profile"]})]}))
+        {"b1": profile_b1, "b16": batch["profile"]}, segment["attn"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

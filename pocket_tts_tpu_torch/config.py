@@ -1,14 +1,19 @@
 """Model / runtime configuration (port of ``pocket_tts_tpu/config.py``).
 
-The same frozen dataclasses as the JAX package, framework-free and without
-YAML: the one supported variant, ``b6369a24``, is written out as Python
-literals equal to ``pocket_tts_tpu/assets/b6369a24.yaml``.
+The same frozen dataclasses as the JAX package, framework-free.  The flagship
+variant, ``b6369a24``, is written out as Python literals equal to
+``pocket_tts_tpu/assets/b6369a24.yaml``.  Any other variant is a YAML file
+found as the JAX package finds it (its assets folder, then ``./``, then
+``./config/``) and read by ``parse_yaml``, a reader of the YAML subset the
+variant files use (no ``pyyaml`` needed).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
+from pathlib import Path
 
 # Generation defaults (the reference's default_parameters).
 DEFAULT_VARIANT = "b6369a24"
@@ -17,6 +22,9 @@ DEFAULT_LSD_DECODE_STEPS = 1
 DEFAULT_NOISE_CLAMP: float | None = None
 DEFAULT_EOS_THRESHOLD = -4.0
 DEFAULT_AUDIO_PROMPT = "alba"
+
+# the JAX package's variant YAMLs (data, read by file path)
+_CONFIG_DIR = Path(__file__).resolve().parent.parent / "pocket_tts_tpu" / "assets"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,8 +271,214 @@ def config_from_dict(data: dict, cls=Config):
     return cls(**kwargs)
 
 
+def load_config(path: str | Path) -> Config:
+    """A variant YAML file -> Config."""
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(f"Config file not found: {path}")
+    data = parse_yaml(path.read_text(encoding="utf-8"), str(path))
+    if not isinstance(data, dict):
+        raise ValueError(f"{path}: a variant file is a mapping, got {type(data).__name__}")
+    return config_from_dict(data)
+
+
+def find_config_path(variant: str) -> Path:
+    """``<variant>.yaml`` from the JAX package's assets, then the working
+    directory, then its ``config/`` folder (the JAX package's order)."""
+    candidates = [_CONFIG_DIR / f"{variant}.yaml", Path.cwd() / f"{variant}.yaml",
+                  Path.cwd() / "config" / f"{variant}.yaml"]
+    for c in candidates:
+        if c.exists():
+            return c
+    raise FileNotFoundError(
+        f"No config found for variant {variant!r}; searched {[str(c) for c in candidates]}")
+
+
 def load_variant(variant: str = DEFAULT_VARIANT) -> Config:
-    if variant not in _VARIANTS:
-        raise FileNotFoundError(
-            f"No config for variant {variant!r}; known: {sorted(_VARIANTS)}")
-    return _VARIANTS[variant]()
+    """The flagship from its literals; any other variant from its YAML."""
+    if variant in _VARIANTS:
+        return _VARIANTS[variant]()
+    return load_config(find_config_path(variant))
+
+
+# ---------------------------------------------------------------------------
+# the YAML subset of the variant files
+# ---------------------------------------------------------------------------
+
+# yaml.safe_load's implicit scalar types (YAML 1.1, PyYAML's resolver)
+_BOOLS = {**dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"), True),
+          **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"),
+                          False)}
+_NULLS = ("", "~", "null", "Null", "NULL")
+_INT = re.compile(r"[-+]?(?:0b[0-1_]+|0[0-7_]+|0|[1-9][0-9_]*|0x[0-9a-fA-F_]+)")
+_FLOAT = re.compile(r"[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)")
+# what PyYAML resolves to other types (sexagesimal numbers, dates) or treats
+# specially (merge keys): refused, not guessed
+_OTHER = re.compile(r"[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
+                    r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*|<<|=")
+_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n", "v": "\v",
+            "f": "\f", "r": "\r", "e": "\x1b", " ": " ", '"': '"', "/": "/", "\\": "\\",
+            "N": "\x85", "_": "\xa0", "L": "\u2028", "P": "\u2029"}
+_HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
+
+
+class _Refused(ValueError):
+    pass
+
+
+def _resolve(s: str):
+    """A plain scalar -> None, bool, int, float or str, as yaml.safe_load."""
+    if s in _NULLS:
+        return None
+    if s in _BOOLS:
+        return _BOOLS[s]
+    if _INT.fullmatch(s):
+        v = s.replace("_", "")
+        sign = -1 if v[0] == "-" else 1
+        v = v.lstrip("+-")
+        if v.startswith(("0b", "0x")):
+            return sign * int(v[2:], 2 if v[1] == "b" else 16)
+        return sign * int(v, 8 if len(v) > 1 and v[0] == "0" else 10)
+    if _FLOAT.fullmatch(s):
+        v = s.replace("_", "").lower()
+        sign = -1.0 if v[0] == "-" else 1.0
+        v = v.lstrip("+-")
+        if v == ".nan":
+            return math.nan
+        return sign * (math.inf if v == ".inf" else float(v))
+    if _OTHER.fullmatch(s):
+        raise _Refused(f"plain scalar {s!r} (a YAML number, date or merge key of another kind)")
+    return s
+
+
+def _quoted(s: str, at: int) -> tuple[str, int]:
+    """The quoted scalar starting at ``s[at]`` -> (value, index past it)."""
+    quote, out, i = s[at], [], at + 1
+    while i < len(s):
+        c = s[i]
+        if c == quote:
+            if quote == "'" and s[i + 1:i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            return "".join(out), i + 1
+        if c == "\\" and quote == '"':
+            code = s[i + 1:i + 2]
+            if code in _ESCAPES:
+                out.append(_ESCAPES[code])
+                i += 2
+                continue
+            width = _HEX_ESCAPES.get(code)
+            digits = s[i + 2:i + 2 + width] if width else ""
+            if not width or len(digits) != width or not re.fullmatch(r"[0-9a-fA-F]+", digits):
+                raise _Refused(f"escape {s[i:i + 2]!r}")
+            out.append(chr(int(digits, 16)))
+            i += 2 + width
+            continue
+        out.append(c)
+        i += 1
+    raise _Refused("a quoted scalar that does not end on its line")
+
+
+def _rest_is_comment(s: str) -> None:
+    if s.strip() and not re.match(r"\s+#", s):
+        raise _Refused(f"text after a value: {s.strip()!r}")
+
+
+def _value(s: str):
+    """The value text after ``key:`` -> a scalar or a list (flow sequence)."""
+    if s[0] in "'\"":
+        value, end = _quoted(s, 0)
+        _rest_is_comment(s[end:])
+        return value
+    if s[0] == "[":
+        items, i = [], 1
+        while True:
+            while i < len(s) and s[i] == " ":
+                i += 1
+            if i < len(s) and s[i] == "]":
+                _rest_is_comment(s[i + 1:])
+                return items
+            if i < len(s) and s[i] in "'\"":
+                item, i = _quoted(s, i)
+            else:
+                m = re.match(r"[^,\[\]{}#'\"]*", s[i:])
+                text = m.group().strip()
+                if not text or text[0] in "&*!|>%@`-?:" or ": " in text:
+                    raise _Refused(f"flow sequence item {s[i:].strip()!r}")
+                item, i = _resolve(text), i + m.end()
+            items.append(item)
+            while i < len(s) and s[i] == " ":
+                i += 1
+            if i < len(s) and s[i] == ",":
+                i += 1
+            elif not (i < len(s) and s[i] == "]"):
+                raise _Refused(f"flow sequence {s.strip()!r}")
+    if s[0] in "{&*!|>%@`?" or s[0] == "-" and s[1:2] in ("", " "):
+        raise _Refused(f"value {s.strip()!r}")
+    plain = re.split(r"\s#", s, maxsplit=1)[0].strip()
+    if ": " in plain or plain.endswith(":"):
+        raise _Refused(f"a mapping inside the value {plain!r}")
+    return _resolve(plain)
+
+
+def parse_yaml(text: str, source: str = "<yaml>"):
+    """Read the YAML subset of the variant files, as ``yaml.safe_load`` does:
+    nested block mappings by indentation (spaces), ``#`` comments, plain and
+    quoted scalars resolved to None, bool, int, float or str, and one-line
+    flow sequences of scalars (``[6, 5, 4]``).  Anything else (block
+    sequences, flow mappings, anchors, tags, block scalars, multi-line
+    scalars, several documents, duplicate keys, sexagesimal numbers, dates)
+    raises ValueError naming the line.  An empty document is None."""
+    root: dict | None = None
+    stack: list[tuple[int, dict]] = []  # (indent of the mapping's keys, mapping)
+    open_key = None  # (indent, mapping, key) of a key whose value is on the lines below
+    started = False
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        try:
+            body = raw.lstrip(" ")
+            if not body.strip() or body.startswith("#"):
+                continue
+            if body[0] == "\t" or raw[:len(raw) - len(body)].count("\t"):
+                raise _Refused("a tab in the indentation")
+            indent = len(raw) - len(body)
+            body = body.rstrip()
+            if body == "---" and not started and indent == 0:
+                started = True
+                continue
+            started = True
+            if open_key is not None:
+                key_indent, mapping, key = open_key
+                open_key = None
+                if indent > key_indent:
+                    mapping[key] = {}
+                    stack.append((indent, mapping[key]))
+                else:
+                    mapping[key] = None
+            if root is None:
+                root = {}
+                stack.append((indent, root))
+            while stack and stack[-1][0] > indent:
+                stack.pop()
+            if not stack or stack[-1][0] != indent:
+                raise _Refused("an indentation that opens no mapping")
+            m = re.match(r"([^\s'\"#\[\]{},&*!|>%@`?-][^\s:]*(?:[ ]+[^\s:]+)*|-[^\s:]+)"
+                         r"[ ]*:(?:[ ]+(.*))?$", body)
+            if not m:
+                raise _Refused(f"line {body!r} (expected 'key: value')")
+            key, value = m.group(1), (m.group(2) or "").strip()
+            if not isinstance(_resolve(key), str):
+                raise _Refused(f"key {key!r} (not a string)")
+            mapping = stack[-1][1]
+            if key in mapping:
+                raise _Refused(f"duplicate key {key!r}")
+            if not value or value.startswith("#"):
+                mapping[key] = None
+                open_key = (indent, mapping, key)
+            else:
+                mapping[key] = _value(value)
+        except _Refused as e:
+            raise ValueError(f"{source}:{lineno}: {e} is outside the YAML subset this reader "
+                             "takes") from None
+    return root

@@ -9,7 +9,8 @@ gives the same latents.
 Decode: streaming decode of denormalized 32-dim latents: 1x1 quantizer
 projection 32 -> 512, depthwise transposed-conv upsample x16 (12.5 Hz ->
 200 Hz), windowed decoder transformer over carried KV tails, SEANet decoder
--> 1920 samples of 24 kHz audio per latent frame.
+-> 1920 samples of 24 kHz audio per latent frame.  ``decode_batch`` decodes
+a whole utterance from a fresh state in one pass, with the same output.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from pocket_tts_tpu_torch.ops.conv import (
     ConvSpec,
     ConvTrSpec,
     batch_conv1d,
+    batch_conv_transpose1d,
     conv_init_state,
     convtr_init_state,
     pad_for_frame,
@@ -153,3 +155,18 @@ def decode_step(params: dict, plans: MimiPlans, state: dict, latent_bct: torch.T
     new_state = {"up": up_state, "kc": kc, "vc": vc,
                  "pos": state["pos"] + t200, "dec": dec_state}
     return audio, new_state
+
+
+def decode_batch(params: dict, plans: MimiPlans, latent_bct: torch.Tensor,
+                 block: int = 256) -> torch.Tensor:
+    """Whole-utterance decode of denormalized latents [B, ldim, T] -> audio
+    [B, 1, T * 1920], with fresh-state streaming semantics: equal to
+    ``decode_step`` over the frames from ``init_decode_state``.  ``block``:
+    query block of the decoder transformer's banded attention."""
+    tcfg = plans.cfg.transformer
+    x = quantize(params, latent_bct)
+    x = batch_conv_transpose1d(plans.specs["upsample"], params["upsample_w"], None, x)
+    positions = torch.arange(x.shape[-1], device=x.device)
+    cos, sin = rope_table(positions, tcfg.head_dim, tcfg.max_period)
+    x = transformer.projected_batch_forward(params["dec_tf"], tcfg, x, cos, sin, block=block)
+    return seanet.batch_forward(plans.decoder, params["decoder"], x)

@@ -1,4 +1,4 @@
-"""Generation engine around the model (port of the chunked path of
+"""Generation engine around the model (port of
 ``pocket_tts_tpu/runtime/engine.py``, single-stream and batched).
 
 * One state dict (FlowLM KV cache + cursor, previous latent, Mimi decode
@@ -10,6 +10,9 @@
   reads audio and EOS flags once per chunk.  Per-slot temperature, EOS
   threshold, LSD step count and noise clamp vectors serve the continuous
   batcher (``runtime/batcher.py``).
+* ``decode_segment`` decodes a whole B = 1 segment with the EOS stop rule:
+  the host frame loop stops on EOS flags it reads asynchronously, then the
+  codec runs in groups of 64 frames up to the last emitted one.
 * ``admit_slot`` / ``admit_prefill_slot`` install a voice snapshot into one
   lane of a batched state and prefill that lane's text, writing that lane
   only, in place.
@@ -29,6 +32,7 @@
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 
@@ -44,6 +48,16 @@ from pocket_tts_tpu_torch.ops.conv import pad_for_frame
 from pocket_tts_tpu_torch.ops.qtensor import QTensor
 
 logger = logging.getLogger(__name__)
+
+# decode_segment's host stop: every SEGMENT_POLL frames the loop enqueues a
+# copy of the device's eos_step into pinned memory and records an event; it
+# reads a copy once its event is done, and waits on the oldest unread copy
+# when SEGMENT_MAX_LAG frames have been enqueued after it.  So at most
+# SEGMENT_POLL + SEGMENT_MAX_LAG frames are computed past the stop.
+SEGMENT_POLL = 4
+SEGMENT_MAX_LAG = 12
+# frames per codec decode of a fused segment (the JAX package's group)
+CODEC_GROUP = 64
 
 
 def _bucket(n: int, buckets: tuple[int, ...]) -> int:
@@ -444,6 +458,83 @@ class Engine:
         new_state = {"kc": kc, "vc": vc, "pos": pos, "latent": latent, "mimi": mimi_state}
         return new_state, self._pcm16(audio), is_eos
 
+    def segment_bucket(self, max_frames: int) -> int | None:
+        """The smallest ``segment_buckets`` entry covering ``max_frames``
+        (None: too big for ``decode_segment``; callers take the chunk
+        schedule)."""
+        return next((b for b in self._rcfg.segment_buckets if max_frames <= b), None)
+
+    @staticmethod
+    def segment_groups(bucket: int, n_valid: int) -> list[tuple[int, int]]:
+        """(first frame, frames) of each codec decode ``decode_segment`` runs:
+        groups of ``min(CODEC_GROUP, bucket)`` frames that start below
+        ``n_valid``, the last one cut at ``n_valid``."""
+        group = min(CODEC_GROUP, bucket)
+        return [(g, min(group, n_valid - g)) for g in range(0, n_valid, group)]
+
+    def decode_segment(self, state: dict, gen: GenParams, generator: torch.Generator, *,
+                       max_frames: int, frames_after_eos: int, bucket: int
+                       ) -> tuple[dict, torch.Tensor, int, int]:
+        """A whole B = 1 segment with the EOS stop rule: frames until
+        ``n_valid = min(max_frames, eos_step + frames_after_eos)``, then the
+        codec over those frames only.
+
+        ``eos_step`` is the first frame whose EOS logit is above
+        ``gen.eos_threshold``; it lives on the device and each frame updates
+        it with ``torch.where``, so the frame loop never waits for the
+        device.  The host learns it through ``_EosWatch``: on CUDA from a copy
+        every ``SEGMENT_POLL`` frames, read once its event is done, which
+        bounds the frames computed past the stop at ``SEGMENT_POLL +
+        SEGMENT_MAX_LAG``; on the CPU it reads every frame (a read there waits
+        for nothing), so the loop stops where the JAX package's while_loop
+        does: at ``n_valid``, or at ``eos_step + 1`` when
+        ``frames_after_eos`` is 0.  Frames past the stop count in
+        ``frames_decoded`` / ``flow_evals`` and are never decoded by the
+        codec.  The noise is one draw per frame from ``generator``, as in
+        ``decode_frames``, so both paths agree at any temperature.
+
+        The latents are denormalized and decoded in ``segment_groups``: the
+        last group is decoded as it is, cut at ``n_valid`` (the codec is
+        causal, so frames past ``n_valid`` change no emitted sample).
+        ``bucket`` (at least ``max_frames``) sizes the latent buffer and the
+        group.  Returns (state, wire audio [1, n_valid * 1920], n_valid,
+        eos_step or -1), the two counts on the host."""
+        if state["pos"].shape[0] != 1:
+            raise ValueError("decode_segment decodes one lane (B = 1)")
+        if not 0 < max_frames <= bucket:
+            raise ValueError(f"decode_segment: max_frames {max_frames} outside (0, {bucket}]")
+        params = self.params["flow_lm"]
+        steps = gen.lsd_decode_steps
+        table = flow_mlp.time_embedding_table(params["flow"], steps)
+        kc, vc, pos, latent = state["kc"], state["vc"], state["pos"], state["latent"]
+        latents = torch.empty((bucket, 1, self.ldim), dtype=torch.float32, device=self.device)
+        eos_step = torch.full((), -1, dtype=torch.int32, device=self.device)
+        watch = _EosWatch(self.device, bucket, max_frames, frames_after_eos)
+        i = 0
+        while i < watch.stop:
+            noise = flow_lm.sample_noise(generator, (1, self.ldim), gen.temp, gen.noise_clamp,
+                                         self.device)
+            latent, eos_logit, _, _, pos = flow_lm.step(params, self.cfg, kc, vc, pos, latent,
+                                                        noise, table, steps)
+            latents[i].copy_(latent)
+            eos_step = torch.where((eos_logit[0] > gen.eos_threshold) & (eos_step < 0), i,
+                                   eos_step)
+            i += 1
+            watch.after_frame(i, eos_step)
+        n_valid = watch.finish(i, eos_step)
+        self.frames_decoded += i
+        self.flow_evals += i * steps
+        lat_bct = flow_lm.denormalize(params, latents[:n_valid]).permute(1, 2, 0)  # [1, ldim, n]
+        mimi_state, pcm = state["mimi"], []
+        for g, k in self.segment_groups(bucket, n_valid):
+            audio, mimi_state = mimi.decode_step(self.params["mimi"], self.plans, mimi_state,
+                                                 lat_bct[:, :, g:g + k])
+            pcm.append(self._pcm16(audio))
+        audio = (torch.cat(pcm, dim=1) if pcm
+                 else torch.zeros((1, 0), dtype=self.wire_dtype, device=self.device))
+        new_state = {"kc": kc, "vc": vc, "pos": pos, "latent": latent, "mimi": mimi_state}
+        return new_state, audio, n_valid, watch.eos_step
+
     def chunk_schedule(self, max_frames: int, low_latency: bool = True) -> list[int]:
         """Decode chunk sizes covering ``max_frames`` (the tail may overshoot;
         the host truncates).  ``low_latency``: warm-up ramp for fast first
@@ -461,3 +552,68 @@ class Engine:
             total += c
             i += 1
         return out
+
+
+class _EosWatch:
+    """The host side of ``decode_segment``'s stop rule: which frame the loop
+    stops at (``stop``) and the first EOS frame it has read (``eos_step``,
+    -1 until one is read).
+
+    ``after_frame(i, eos_step)`` runs after the i-th frame is enqueued.  Every
+    ``poll`` frames (``SEGMENT_POLL`` on CUDA, 1 on the CPU) it enqueues a
+    copy of the device's ``eos_step`` into a pinned host buffer and, on CUDA,
+    records an event.  Copies are read in order: each as soon as its event is
+    done, and the oldest one with a wait once ``SEGMENT_MAX_LAG`` frames have
+    been enqueued after it.  The first copy that shows EOS at frame e is taken
+    at most ``poll`` frames after e and read at most ``SEGMENT_MAX_LAG``
+    frames after that, so the loop computes at most ``poll + SEGMENT_MAX_LAG``
+    frames past ``min(max_frames, e + frames_after_eos)``.  ``event``:
+    the event type (``torch.cuda.Event``; None on the CPU, where a copy is
+    complete when ``copy_`` returns)."""
+
+    def __init__(self, device: torch.device, bucket: int, max_frames: int,
+                 frames_after_eos: int, *, poll: int | None = None, event=None):
+        cuda = device.type == "cuda"
+        self.poll = poll or (SEGMENT_POLL if cuda else 1)
+        self.event = event or (torch.cuda.Event if cuda else None)
+        self.host = torch.empty((bucket // self.poll + 1,), dtype=torch.int32, pin_memory=cuda)
+        self.unread: collections.deque = collections.deque()  # (frames, slot, event)
+        self.stop = max_frames
+        self.max_frames = max_frames
+        self.fae = frames_after_eos
+        self.eos_step = -1
+
+    def after_frame(self, i: int, eos_step: torch.Tensor) -> None:
+        if self.eos_step >= 0:
+            return
+        if i % self.poll == 0:
+            slot = i // self.poll
+            self.host[slot].copy_(eos_step, non_blocking=True)
+            ev = None
+            if self.event is not None:
+                ev = self.event()
+                ev.record()
+            self.unread.append((i, slot, ev))
+        while self.unread and self.eos_step < 0:
+            at, slot, ev = self.unread[0]
+            if ev is not None and not ev.query():
+                if i - at < SEGMENT_MAX_LAG:
+                    return
+                ev.synchronize()
+            self.unread.popleft()
+            self._read(int(self.host[slot]))
+
+    def _read(self, e: int) -> None:
+        if e >= 0:
+            self.eos_step = e
+            self.stop = min(self.max_frames, e + self.fae)
+            self.unread.clear()
+
+    def finish(self, i: int, eos_step: torch.Tensor) -> int:
+        """``n_valid`` after the loop has computed ``i`` frames.  An EOS not
+        read yet is read from the device here: one wait, after the last
+        frame.  With ``frames_after_eos`` 0 the EOS frame itself was computed
+        before the stop could show, and ``n_valid`` is clamped below it."""
+        if self.eos_step < 0:
+            self._read(int(eos_step))
+        return i if self.eos_step < 0 else self.stop

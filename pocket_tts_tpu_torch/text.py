@@ -172,6 +172,9 @@ class TextTokenizer:
         flush()
         return "".join(out)
 
+    def count_tokens(self, text: str) -> int:
+        return len(self.encode(text))
+
 
 @functools.lru_cache(maxsize=4)
 def load_tokenizer(path: str | None = None) -> TextTokenizer:

@@ -1,5 +1,5 @@
 """TTSModel — the public orchestrator (port of ``pocket_tts_tpu/tts.py``,
-single-stream synthesis on the chunk schedule).
+single-stream synthesis).
 
 ``load`` / ``load_with_params`` / ``load_from_bytes`` / ``load_quantized`` /
 ``with_params`` / ``get_voice_state*`` / ``save_voice_prompt`` /
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import time
 from pathlib import Path
@@ -468,9 +469,15 @@ class TTSModel:
 class _SegmentRun:
     """Dispatch/fetch state machine for one text segment (single stream).
 
-    Chunks are enqueued ahead of fetches; ``fetch_one`` reads the oldest
-    chunk's audio and EOS flags (the only host sync), applies the stop rule
-    ``min(max_frames, eos_step + frames_after_eos)`` and truncates overshoot.
+    Whole-utterance segments (``low_latency=False``) whose frame budget fits a
+    ``segment_buckets`` entry decode in one ``Engine.decode_segment`` call,
+    which stops at EOS + ``frames_after_eos`` itself, when
+    ``runtime.segment_dispatch`` is "auto" and the EOS threshold is finite
+    (with EOS unreachable there is nothing to stop early).  The others run
+    the chunk schedule: chunks are enqueued ahead of fetches; ``fetch_one``
+    reads the oldest chunk's audio and EOS flags (the only host sync),
+    applies the stop rule ``min(max_frames, eos_step + frames_after_eos)``
+    and truncates overshoot.
     """
 
     def __init__(self, model: TTSModel, chunk_text: str, voice_state: VoiceState,
@@ -495,10 +502,17 @@ class _SegmentRun:
         self.state = eng.prefill_tokens(state, tokens, n_tokens)
         seed = int(torch.randint(0, 2**62, (1,), generator=model._rng))
         self.generator = torch.Generator(device=eng.device).manual_seed(seed)
-        self._schedule = iter(eng.chunk_schedule(self.max_frames, low_latency=low_latency))
+        self.fused_bucket = None
+        if (not low_latency and self.max_frames and eng._rcfg.segment_dispatch == "auto"
+                and math.isfinite(model.gen.eos_threshold)):
+            self.fused_bucket = eng.segment_bucket(self.max_frames)
+        if self.fused_bucket is not None:
+            self._schedule = iter([self.fused_bucket])
+        else:
+            self._schedule = iter(eng.chunk_schedule(self.max_frames, low_latency=low_latency))
         self._next_k = next(self._schedule, None) if self.max_frames else None
         self.issued = 0
-        self.pending: list[tuple[int, torch.Tensor, torch.Tensor]] = []
+        self.pending: list[tuple] = []
         self.frames_done = 0
         self.eos_step: int | None = None
         self.total_samples = 0
@@ -511,13 +525,29 @@ class _SegmentRun:
     def dispatch_one(self) -> None:
         k = self._next_k
         eng = self.model.engine
-        self.state, audio, is_eos = eng.decode_frames(self.state, k, self.model.gen,
-                                                      self.generator)
-        self.pending.append((k, audio, is_eos))
+        if self.fused_bucket is not None:
+            self.state, audio, n_valid, eos_step = eng.decode_segment(
+                self.state, self.model.gen, self.generator, max_frames=self.max_frames,
+                frames_after_eos=self.frames_after_eos, bucket=k)
+            self.pending.append(("fused", audio, n_valid, eos_step))
+        else:
+            self.state, audio, is_eos = eng.decode_frames(self.state, k, self.model.gen,
+                                                          self.generator)
+            self.pending.append((k, audio, is_eos))
         self.issued += k
         self._next_k = next(self._schedule, None)
 
     def fetch_one(self) -> np.ndarray | None:
+        if self.pending[0][0] == "fused":
+            _, audio, n_valid, eos_step = self.pending.pop(0)
+            self.eos_step = eos_step if eos_step >= 0 else None
+            self.frames_done = n_valid
+            self.done = True
+            if n_valid == 0:
+                return None
+            out = self.model.engine.wire_to_float(audio[0].cpu().numpy())
+            self.total_samples += out.size
+            return out
         k, audio, is_eos = self.pending.pop(0)
         audio = self.model.engine.wire_to_float(audio[0].cpu().numpy())
         eos_np = is_eos[0].cpu().numpy()

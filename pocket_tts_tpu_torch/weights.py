@@ -3,7 +3,7 @@
 Reads the released combined checkpoint layout (the reference
 ``TTSModel.state_dict()`` key names, which ``pocket_tts_tpu.weights.
 export_state_dict`` also writes) into the port's parameter dicts of torch
-tensors.  A small numpy safetensors reader and writer replace the
+tensors, and writes them back (``export_state_dict`` / ``save_checkpoint``).  A small numpy safetensors reader and writer replace the
 ``safetensors`` package; without a checkpoint the loader falls back to a
 deterministic random init at full width (numpy only), with the same keys,
 shapes and init families as the JAX package's ``random_params``.
@@ -194,54 +194,56 @@ def _stack(sd: dict, prefix: str, n: int, suffix: str) -> torch.Tensor:
     return torch.stack([_t(sd[f"{prefix}.{i}.{suffix}"]) for i in range(n)])
 
 
+# the reference layout's key suffixes, by port parameter name: read by the
+# convert_* functions and written by the export_* ones
+_TF_KEYS = {"out_proj": "self_attn.out_proj.weight", "norm1_w": "norm1.weight",
+            "norm1_b": "norm1.bias", "norm2_w": "norm2.weight", "norm2_b": "norm2.bias",
+            "ff1": "linear1.weight", "ff2": "linear2.weight"}
+_LAYER_SCALE_KEYS = {"ls1": "layer_scale_1.scale", "ls2": "layer_scale_2.scale"}
+_TE_KEYS = {"w1": "mlp.0.weight", "b1": "mlp.0.bias", "w2": "mlp.2.weight", "b2": "mlp.2.bias",
+            "alpha": "mlp.3.alpha"}
+_FLOW_KEYS = {"cond_w": "cond_embed.weight", "cond_b": "cond_embed.bias",
+              "in_w": "input_proj.weight", "in_b": "input_proj.bias",
+              "final_ada_w": "final_layer.adaLN_modulation.1.weight",
+              "final_ada_b": "final_layer.adaLN_modulation.1.bias",
+              "final_w": "final_layer.linear.weight", "final_b": "final_layer.linear.bias"}
+_FLOW_BLOCK_KEYS = {"ln_w": "in_ln.weight", "ln_b": "in_ln.bias",
+                    "mlp1_w": "mlp.0.weight", "mlp1_b": "mlp.0.bias",
+                    "mlp2_w": "mlp.2.weight", "mlp2_b": "mlp.2.bias",
+                    "ada_w": "adaLN_modulation.1.weight", "ada_b": "adaLN_modulation.1.bias"}
+_FLOW_LM_KEYS = {"input_w": "input_linear.weight", "out_norm_w": "out_norm.weight",
+                 "out_norm_b": "out_norm.bias", "out_eos_w": "out_eos.weight",
+                 "out_eos_b": "out_eos.bias", "bos_emb": "bos_emb", "emb_std": "emb_std",
+                 "emb_mean": "emb_mean", "text_embed": "conditioner.embed.weight",
+                 "speaker_proj": "speaker_proj_weight"}
+_MIMI_KEYS = {"quantizer_w": "quantizer.output_proj.weight",
+              "downsample_w": "downsample.conv.conv.weight",
+              "upsample_w": "upsample.convtr.convtr.weight"}
+_RES_CONVS = (("conv0", 1), ("conv1", 3))  # a SEANet residual block's convs, by torch index
+
+
 def convert_transformer(sd: dict, prefix: str, n_layers: int, layer_scale: bool) -> dict:
     """Per-layer torch keys -> stacked [L, ...] tensors; in_proj [L, 3E, E] is
     viewed as [L, 3, E, E] (torch rows are qkv-major)."""
     lp = f"{prefix}.layers"
     in_proj = _stack(sd, lp, n_layers, "self_attn.in_proj.weight")
     L, three_e, e = in_proj.shape
-    p = {
-        "in_proj": in_proj.reshape(L, 3, three_e // 3, e),
-        "out_proj": _stack(sd, lp, n_layers, "self_attn.out_proj.weight"),
-        "norm1_w": _stack(sd, lp, n_layers, "norm1.weight"),
-        "norm1_b": _stack(sd, lp, n_layers, "norm1.bias"),
-        "norm2_w": _stack(sd, lp, n_layers, "norm2.weight"),
-        "norm2_b": _stack(sd, lp, n_layers, "norm2.bias"),
-        "ff1": _stack(sd, lp, n_layers, "linear1.weight"),
-        "ff2": _stack(sd, lp, n_layers, "linear2.weight"),
-    }
-    if layer_scale:
-        p["ls1"] = _stack(sd, lp, n_layers, "layer_scale_1.scale")
-        p["ls2"] = _stack(sd, lp, n_layers, "layer_scale_2.scale")
-    return p
+    keys = {**_TF_KEYS, **(_LAYER_SCALE_KEYS if layer_scale else {})}
+    return {"in_proj": in_proj.reshape(L, 3, three_e // 3, e),
+            **{name: _stack(sd, lp, n_layers, suffix) for name, suffix in keys.items()}}
 
 
 def _te(sd: dict, prefix: str) -> dict:
-    return {"w1": _t(sd[f"{prefix}.mlp.0.weight"]), "b1": _t(sd[f"{prefix}.mlp.0.bias"]),
-            "w2": _t(sd[f"{prefix}.mlp.2.weight"]), "b2": _t(sd[f"{prefix}.mlp.2.bias"]),
-            "alpha": _t(sd[f"{prefix}.mlp.3.alpha"])}
-
-
-_FLOW_BLOCK_KEYS = {"ln_w": "in_ln.weight", "ln_b": "in_ln.bias",
-                    "mlp1_w": "mlp.0.weight", "mlp1_b": "mlp.0.bias",
-                    "mlp2_w": "mlp.2.weight", "mlp2_b": "mlp.2.bias",
-                    "ada_w": "adaLN_modulation.1.weight", "ada_b": "adaLN_modulation.1.bias"}
+    return {name: _t(sd[f"{prefix}.{suffix}"]) for name, suffix in _TE_KEYS.items()}
 
 
 def convert_flow_mlp(sd: dict, prefix: str, depth: int) -> dict:
     return {
         "time_embed_0": _te(sd, f"{prefix}.time_embed.0"),
         "time_embed_1": _te(sd, f"{prefix}.time_embed.1"),
-        "cond_w": _t(sd[f"{prefix}.cond_embed.weight"]),
-        "cond_b": _t(sd[f"{prefix}.cond_embed.bias"]),
-        "in_w": _t(sd[f"{prefix}.input_proj.weight"]),
-        "in_b": _t(sd[f"{prefix}.input_proj.bias"]),
+        **{name: _t(sd[f"{prefix}.{suffix}"]) for name, suffix in _FLOW_KEYS.items()},
         "blocks": {name: _stack(sd, f"{prefix}.res_blocks", depth, suffix)
                    for name, suffix in _FLOW_BLOCK_KEYS.items()},
-        "final_ada_w": _t(sd[f"{prefix}.final_layer.adaLN_modulation.1.weight"]),
-        "final_ada_b": _t(sd[f"{prefix}.final_layer.adaLN_modulation.1.bias"]),
-        "final_w": _t(sd[f"{prefix}.final_layer.linear.weight"]),
-        "final_b": _t(sd[f"{prefix}.final_layer.linear.bias"]),
     }
 
 
@@ -250,17 +252,15 @@ def convert_flow_lm(sd: dict, cfg: Config, prefix: str = "flow_lm") -> dict:
     return {
         "tf": convert_transformer(sd, f"{prefix}.transformer", tcfg.num_layers, False),
         "flow": convert_flow_mlp(sd, f"{prefix}.flow_net", cfg.flow_lm.flow.depth),
-        "input_w": _t(sd[f"{prefix}.input_linear.weight"]),
-        "out_norm_w": _t(sd[f"{prefix}.out_norm.weight"]),
-        "out_norm_b": _t(sd[f"{prefix}.out_norm.bias"]),
-        "out_eos_w": _t(sd[f"{prefix}.out_eos.weight"]),
-        "out_eos_b": _t(sd[f"{prefix}.out_eos.bias"]),
-        "bos_emb": _t(sd[f"{prefix}.bos_emb"]),
-        "emb_std": _t(sd[f"{prefix}.emb_std"]),
-        "emb_mean": _t(sd[f"{prefix}.emb_mean"]),
-        "text_embed": _t(sd[f"{prefix}.conditioner.embed.weight"]),
-        "speaker_proj": _t(sd[f"{prefix}.speaker_proj_weight"]),
+        **{name: _t(sd[f"{prefix}.{suffix}"]) for name, suffix in _FLOW_LM_KEYS.items()},
     }
+
+
+def _conv(sd: dict, name: str) -> dict:
+    p = {"w": _t(sd[f"{name}.weight"])}
+    if f"{name}.bias" in sd:
+        p["b"] = _t(sd[f"{name}.bias"])
+    return p
 
 
 def convert_seanet(sd: dict, prefix: str, plan) -> list:
@@ -268,17 +268,9 @@ def convert_seanet(sd: dict, prefix: str, plan) -> list:
     for layer in plan:
         base = f"{prefix}.model.{layer.index}"
         if layer.kind in ("conv", "convtr"):
-            name = f"{base}.{layer.kind}"
-            p = {"w": _t(sd[f"{name}.weight"])}
-            if f"{name}.bias" in sd:
-                p["b"] = _t(sd[f"{name}.bias"])
+            p = _conv(sd, f"{base}.{layer.kind}")
         elif layer.kind == "res":
-            p = {}
-            for name, tidx in (("conv0", 1), ("conv1", 3)):
-                sub = {"w": _t(sd[f"{base}.block.{tidx}.conv.weight"])}
-                if f"{base}.block.{tidx}.conv.bias" in sd:
-                    sub["b"] = _t(sd[f"{base}.block.{tidx}.conv.bias"])
-                p[name] = sub
+            p = {name: _conv(sd, f"{base}.block.{tidx}.conv") for name, tidx in _RES_CONVS}
         else:
             p = {}
         params.append(p)
@@ -296,9 +288,7 @@ def convert_mimi(sd: dict, plans: MimiPlans, prefix: str = "mimi") -> dict:
             sd, f"{prefix}.encoder_transformer.transformer", n, True)},
         "dec_tf": {"layers": convert_transformer(
             sd, f"{prefix}.decoder_transformer.transformer", n, True)},
-        "quantizer_w": _t(sd[f"{prefix}.quantizer.output_proj.weight"]),
-        "downsample_w": _t(sd[f"{prefix}.downsample.conv.conv.weight"]),
-        "upsample_w": _t(sd[f"{prefix}.upsample.convtr.convtr.weight"]),
+        **{name: _t(sd[f"{prefix}.{suffix}"]) for name, suffix in _MIMI_KEYS.items()},
     }
 
 
@@ -306,6 +296,93 @@ def from_state_dict(sd: dict, cfg: Config) -> dict:
     """Reference-layout numpy state dict -> port params {"flow_lm", "mimi"}
     (float32 CPU tensors)."""
     return {"flow_lm": convert_flow_lm(sd, cfg), "mimi": convert_mimi(sd, MimiPlans(cfg.mimi))}
+
+
+# ---------------------------------------------------------------------------
+# port params -> reference layout
+# ---------------------------------------------------------------------------
+
+
+def _np(t) -> np.ndarray:
+    """A float tensor leaf -> float32 numpy.  A QTensor leaf raises, as the
+    JAX package's export does: quantized weights ship through
+    ``runtime.quantize.save_quantized``."""
+    if not torch.is_tensor(t):
+        raise TypeError(f"export_state_dict takes float tensors, got {type(t).__name__}; "
+                        "save quantized params with runtime.quantize.save_quantized")
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def export_transformer(p: dict, prefix: str, layer_scale: bool) -> dict:
+    """Inverse of ``convert_transformer``: in_proj [L, 3, E, E] folds back to
+    per-layer [3E, E] rows."""
+    keys = {**_TF_KEYS, **(_LAYER_SCALE_KEYS if layer_scale else {})}
+    stacks = {name: _np(p[name]) for name in ("in_proj", *keys)}
+    in_proj = stacks.pop("in_proj")
+    out = {}
+    for i in range(in_proj.shape[0]):
+        out[f"{prefix}.layers.{i}.self_attn.in_proj.weight"] = \
+            in_proj[i].reshape(-1, in_proj.shape[-1])
+        for name, suffix in keys.items():
+            out[f"{prefix}.layers.{i}.{suffix}"] = stacks[name][i]
+    return out
+
+
+def _export(p: dict, prefix: str, keys: dict) -> dict:
+    return {f"{prefix}.{suffix}": _np(p[name]) for name, suffix in keys.items()}
+
+
+def export_flow_mlp(p: dict, prefix: str) -> dict:
+    """Inverse of ``convert_flow_mlp``."""
+    out = {**_export(p["time_embed_0"], f"{prefix}.time_embed.0", _TE_KEYS),
+           **_export(p["time_embed_1"], f"{prefix}.time_embed.1", _TE_KEYS),
+           **_export(p, prefix, _FLOW_KEYS)}
+    for name, suffix in _FLOW_BLOCK_KEYS.items():
+        for i, w in enumerate(_np(p["blocks"][name])):
+            out[f"{prefix}.res_blocks.{i}.{suffix}"] = w
+    return out
+
+
+def export_seanet(params: list, prefix: str, plan) -> dict:
+    """Inverse of ``convert_seanet``."""
+    out = {}
+    for p, layer in zip(params, plan):
+        base = f"{prefix}.model.{layer.index}"
+        if layer.kind in ("conv", "convtr"):
+            convs = {f"{base}.{layer.kind}": p}
+        elif layer.kind == "res":
+            convs = {f"{base}.block.{tidx}.conv": p[name] for name, tidx in _RES_CONVS}
+        else:
+            convs = {}
+        for name, conv in convs.items():
+            out |= _export(conv, name, {"w": "weight", **({"b": "bias"} if "b" in conv else {})})
+    return out
+
+
+def export_state_dict(params: dict, cfg: Config) -> dict[str, np.ndarray]:
+    """Port params -> the released combined-checkpoint layout, float32 numpy
+    in torch ``[out, in]`` layout: the exact inverse of ``from_state_dict``,
+    with the keys of the JAX package's ``export_state_dict``.  Float params
+    only (a QTensor leaf raises TypeError)."""
+    fl, mm = params["flow_lm"], params["mimi"]
+    plans = MimiPlans(cfg.mimi)
+    return {**export_transformer(fl["tf"], "flow_lm.transformer", False),
+            **export_flow_mlp(fl["flow"], "flow_lm.flow_net"),
+            **_export(fl, "flow_lm", _FLOW_LM_KEYS),
+            **export_seanet(mm["encoder"], "mimi.encoder", plans.encoder),
+            **export_seanet(mm["decoder"], "mimi.decoder", plans.decoder),
+            **export_transformer(mm["enc_tf"]["layers"], "mimi.encoder_transformer.transformer",
+                                 True),
+            **export_transformer(mm["dec_tf"]["layers"], "mimi.decoder_transformer.transformer",
+                                 True),
+            **_export(mm, "mimi", _MIMI_KEYS)}
+
+
+def save_checkpoint(params: dict, cfg: Config, path: str | Path) -> None:
+    """Write float ``params`` as a combined safetensors checkpoint in the
+    reference layout, readable by ``load_params`` (``POCKET_TTS_WEIGHTS``),
+    ``TTSModel.load_from_bytes`` and the JAX package's loader."""
+    write_safetensors(export_state_dict(params, cfg), path)
 
 
 # ---------------------------------------------------------------------------

@@ -713,3 +713,80 @@ def test_qlinear_f32_matches_plain_and_rows_are_bit_identical(cuda_device, n, k,
         alone = ql.qlinear(x[r:r + 1].contiguous(), w, b)
         assert torch.equal(alone[0], y16[r]) and torch.equal(alone[0], y32[r])
     assert torch.equal(ql.qlinear(x[:16], w, b), y16)
+
+
+# -- the fused segment decode ------------------------------------------------------
+
+
+def _eos_threshold_mid_budget(model, text: str) -> tuple[float, int]:
+    """(threshold, frame): a threshold halfway between two EOS logit values of
+    ``text``'s temp-0 run at which EOS first fires nearest mid-budget."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch import text as text_mod
+    from pocket_tts_tpu_torch.models import flow_lm, flow_mlp
+
+    eng = model.engine
+    prepared, _ = text_mod.prepare_text_prompt(text)
+    tokens, n_tokens = text_mod.tokens_array(model.tokenizer, prepared)
+    st = eng.prefill_tokens(eng.reset_for_segment(model.get_voice_state().as_dict()), tokens,
+                            n_tokens)
+    params = eng.params["flow_lm"]
+    table = flow_mlp.time_embedding_table(params["flow"], 1)
+    pos, latent, logits = st["pos"], st["latent"], []
+    for _ in range(model.estimate_generation_steps(text)):
+        latent, logit, _, _, pos = flow_lm.step(params, eng.cfg, st["kc"], st["vc"], pos, latent,
+                                                torch.zeros(1, eng.ldim, device=eng.device),
+                                                table, 1)
+        logits.append(logit[0])
+    logits = torch.stack(logits).float().cpu().numpy()
+    values = sorted(set(logits.tolist()), reverse=True)
+    cands = [((hi + lo) / 2, int(np.argmax(logits > (hi + lo) / 2)))
+             for hi, lo in zip(values, values[1:])]
+    return min(cands, key=lambda c: abs(c[1] - logits.size // 2))
+
+
+def _fused_against_chunked(device, fae):
+    """(emitted frames, frames decoded, frames the stop rule allows, max LSB
+    between the fused and chunked paths, EOS frame) on the small config."""
+    import dataclasses
+
+    import numpy as np
+
+    from pocket_tts_tpu_torch import config as c
+    from pocket_tts_tpu_torch import weights
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+    from pocket_tts_tpu_torch.tts import TTSModel, _SegmentRun
+
+    text = "Hello there friend."
+    cfg = _small_config(c.RuntimeConfig(max_seq=512, text_buckets=(16, 32, 64),
+                                        decode_chunks=(2, 4, 8)))
+    params = weights.from_state_dict(weights.random_state_dict(cfg, 3), cfg)
+    model = TTSModel(cfg, params, gen=GenParams(temp=0.0), has_real_weights=False,
+                     device=device)
+    threshold, frame = _eos_threshold_mid_budget(model, text)
+    model.gen = GenParams(temp=0.0, eos_threshold=threshold)
+    chunked = TTSModel(dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, segment_dispatch="chunked")), params, gen=model.gen,
+        has_real_weights=False, device=device)
+    run = _SegmentRun(model, text, model.get_voice_state(), fae, low_latency=False)
+    assert run.fused_bucket is not None
+    a, b = model.generate(text, frames_after_eos=fae), chunked.generate(text, frames_after_eos=fae)
+    assert a.shape == b.shape and a.size > 0
+    lsb = int(np.abs(np.round(a * 32767).astype(np.int64) - np.round(b * 32767)).max())
+    allowed = min(run.max_frames, frame + run.frames_after_eos)
+    return a.size // 1920, model.engine.frames_decoded, allowed, lsb, frame
+
+
+@pytest.mark.parametrize("fae", [None, 0])
+def test_fused_segment_on_cuda_stops_within_the_bound(cuda_device, fae):
+    """The fused segment on the card (bf16 backbone) emits exactly the stop
+    rule's frames, computes at most SEGMENT_POLL + SEGMENT_MAX_LAG more, and
+    agrees with the chunk schedule within 2 int16 LSB (the bound the main
+    path holds generate and generate_stream to on the card)."""
+    from pocket_tts_tpu_torch.runtime import engine
+
+    emitted, decoded, allowed, lsb, frame = _fused_against_chunked(cuda_device, fae)
+    assert 0 < frame and emitted == allowed
+    assert 0 <= decoded - emitted <= engine.SEGMENT_POLL + engine.SEGMENT_MAX_LAG
+    assert lsb <= 2

@@ -147,7 +147,7 @@ def test_port_sources_import_no_jax():
 
 
 _NO_JAX = r"""
-import json, sys
+import dataclasses, json, sys
 BLOCKED = ("jax", "jaxlib", "tokenizers", "yaml", "safetensors")
 
 
@@ -193,6 +193,28 @@ with tempfile.TemporaryDirectory() as tmp:
     assert training.apply_adapted(model, path).generate("Hi.").size
 assert audio.wav_bytes(voiced, 24000) == audio.wav_header(24000, voiced.size) + \
     audio.pcm_i16_le_bytes(voiced)
+from pocket_tts_tpu_torch import utils
+from pocket_tts_tpu_torch.tts import _SegmentRun
+with tempfile.TemporaryDirectory() as tmp:
+    os.makedirs(os.path.join(tmp, "config"))
+    with open(os.path.join(tmp, "config", "tiny.yaml"), "w") as f:
+        f.write(sys.argv[2])
+    here = os.getcwd()
+    os.chdir(tmp)
+    try:
+        vcfg = config.load_variant("tiny")
+    finally:
+        os.chdir(here)
+assert vcfg == dataclasses.replace(cfg, runtime=dataclasses.replace(
+    cfg.runtime, segment_buckets=(64, 200))), vcfg
+fused = pocket_tts_tpu_torch.TTSModel(
+    vcfg, weights.from_state_dict(weights.random_state_dict(vcfg, 0), vcfg),
+    gen=GenParams(temp=0.5), has_real_weights=False, device="cpu")
+assert _SegmentRun(fused, "Hi there.", fused.get_voice_state(), None,
+                   low_latency=False).fused_bucket == 64
+with utils.display_execution_time("fused generate", print_output=False) as t:
+    wav = fused.generate("Hi there.")
+assert wav.size % 1920 == 0 and np.isfinite(wav).all() and t.elapsed_ms > 0
 loaded = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and m.split(".")[0] in ("jax", "pocket_tts_tpu"))
 assert not loaded, loaded
@@ -200,8 +222,26 @@ print("OK", wav.size)
 """
 
 
+def _yaml_lines(tree: dict, indent: int = 0) -> list[str]:
+    """A nested dict of scalars and lists as block-mapping YAML with flow
+    sequences (the subset the port's reader takes)."""
+    lines = []
+    for key, value in tree.items():
+        pad = " " * indent
+        if isinstance(value, dict):
+            lines += [f"{pad}{key}:  # a mapping", *_yaml_lines(value, indent + 2)]
+        elif isinstance(value, (list, tuple)):
+            lines.append(f"{pad}{key}: [{', '.join(json.dumps(v) for v in value)}]")
+        else:
+            lines.append(f"{pad}{key}: {json.dumps(value)}")
+    return lines
+
+
 def test_port_runs_without_jax_tokenizers_yaml_safetensors():
-    res = subprocess.run([sys.executable, "-c", _NO_JAX, json.dumps(dataclasses.asdict(CFG))],
-                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    tree = dataclasses.asdict(CFG)
+    tree["runtime"]["segment_buckets"] = [64, 200]
+    variant = "\n".join(["# the test config as a variant file", *_yaml_lines(tree)]) + "\n"
+    res = subprocess.run([sys.executable, "-c", _NO_JAX, json.dumps(dataclasses.asdict(CFG)),
+                          variant], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("OK")
