@@ -149,6 +149,32 @@ result line):
    then the request layer with that adapter (on the batcher) and the full
    fine-tune (on its merged model).
 
+11. Mesh: multi-device serving on this card.  (a) ``make_mesh()`` over the
+   machine's cards (dp x tp, 1 x 1 on one card) and its shard report; the
+   flagship's ``sharding_manifest`` at tp 2 / 4 / 8 over [card] x 8, the
+   twelve transformer products of tests/test_sharding.py:182-189 sharded at
+   each.  (b) float32 mesh engines on repeated devices against one device on
+   the same weights: tp 2 at B = 2 (prefill + 2 chunks, audio within
+   ``MESH_LSB``, latents within ``MESH_LATENT_TOL``), and dp 2 x tp 2 at B =
+   4 with two requests of other synthetic voices and texts admitted through
+   ``admit_prefill_slot`` (each lane within ``MESH_LSB``, the requests
+   apart; its launches counted: flow_blocks = frames x steps x dp,
+   decode_attention = frames x 6 x dp x tp).  (c) bf16 and int8 engines at tp 2, B = 1: ``qlinear`` on the
+   int8 engine's own shards (and int4 at their shapes) and
+   ``decode_attention`` on each rank's cache shard (8 heads) against their
+   plain versions; the counted run of the mesh path (flow_blocks = frames x
+   steps x dp, decode_attention = frames x 6 x dp x tp, qlinear = the shape
+   rule's, each rank its shards); two runs bit for bit; the gap to one
+   device; ms per frame against one device in turns.  (d) The codec staged on a CUDA stream of
+   its own (chunk schedule): ``generate`` and ``generate_stream`` bit for
+   bit the unstaged model's, ``generate`` within 1 LSB of the fused segment,
+   a profile window with the codec's kernels on a stream of their own, the
+   ``profile`` lines of both (device ms, busy share and launches per
+   frame), and x-realtime staged and unstaged in turns.  Each kernel's entry of the
+   JSON line gains ``launches_mesh``, the counts of (c)'s counted run, and
+   flow_blocks' and decode_attention's ``launches_mesh_dp2``, those of (b)'s
+   dp 2 x tp 2 run.
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
@@ -157,6 +183,7 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import collections
 import contextlib
 import dataclasses
 import io
@@ -2988,6 +3015,367 @@ def phase_train(model, q8fp8, smi: str) -> dict:
     return out
 
 
+# -- phase 11: multi-device serving, the dp x tp mesh and the staged codec -----------
+
+MESH_SHARDED = (
+    "flow_lm/tf/in_proj", "flow_lm/tf/out_proj", "flow_lm/tf/ff1", "flow_lm/tf/ff2",
+    "mimi/enc_tf/layers/in_proj", "mimi/enc_tf/layers/out_proj",
+    "mimi/enc_tf/layers/ff1", "mimi/enc_tf/layers/ff2",
+    "mimi/dec_tf/layers/in_proj", "mimi/dec_tf/layers/out_proj",
+    "mimi/dec_tf/layers/ff1", "mimi/dec_tf/layers/ff2")  # tests/test_sharding.py:182-189
+MESH_TEXT = "The mesh splits every layer of the backbone over its ranks."
+MESH_TEXTS = ("The first admitted request speaks in one voice.", "A second one, another.")
+MESH_FRAMES = 8  # frames per chunk of the mesh runs
+MESH_LATENT_TOL = (2e-4, 1e-3)  # atol, rtol: f32 latents at full width (test_sharding.py:115)
+MESH_LSB = 1  # int16 LSB: f32 sums in another order (tests/test_sharding.py:82-86)
+STAGED_TEXT = ("Staging the codec on a stream of its own. "
+               "The frames of the next chunk run beside it.")
+
+
+def _mesh_tokens(model, text: str, batch: int):
+    from pocket_tts_tpu_torch import text as text_mod
+
+    prepared, _ = text_mod.prepare_text_prompt(text)
+    tokens, n = text_mod.tokens_array(model.tokenizer, prepared)
+    return np.tile(tokens, (batch, 1)), n
+
+
+def _mesh_decode(eng, tokens, n: int, chunks: int, seed: int, state=None):
+    """Prefill (unless ``state`` is given) and ``chunks`` x MESH_FRAMES frames
+    at temp 0.5 from one seeded generator: (int16 audio [B, T], latents
+    [B, ldim] on the host, state)."""
+    from pocket_tts_tpu_torch.parallel.mesh import gather
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+
+    st = state if state is not None else eng.prefill_tokens(eng.new_state(), tokens, n)
+    gen = torch.Generator(device=eng.device).manual_seed(seed)
+    pcm = []
+    for _ in range(chunks):
+        st, audio, _ = eng.decode_frames(st, MESH_FRAMES, GenParams(
+            temp=0.5, eos_threshold=float("inf")), gen)
+        pcm.append(audio.cpu().numpy().astype(np.int64))
+    return np.concatenate(pcm, 1), gather(st["latent"], "cpu").float().numpy(), st
+
+
+def _mesh_gap(a, b, la, lb) -> tuple[int, float]:
+    _require(a.shape == b.shape, f"mesh: audio {a.shape} vs {b.shape}")
+    _require(bool(np.isfinite(la).all()), "mesh: non-finite latents")
+    return int(np.abs(a - b).max()), float(np.abs(la - lb).max())
+
+
+def _mesh_layout(model, dev, smi: str) -> None:
+    """(a) make_mesh() over this machine's cards and its shard report; the
+    flagship's manifest at tp 2 / 4 / 8 over [card] x 8."""
+    from pocket_tts_tpu_torch.parallel import mesh as pm
+
+    m = pm.make_mesh()
+    print(f"mesh: make_mesh() over {torch.cuda.device_count()} card(s) [{smi}]: dp "
+          f"{m.shape['dp']} x tp {m.shape['tp']}; its shard report:")
+    print(pm.format_shard_report(pm.shard_params(model.engine.params, m)))
+    for tp in (2, 4, 8):
+        man = pm.sharding_manifest(pm.shard_params(
+            model.engine.params, pm.make_mesh(8, tp=tp, devices=[dev] * 8)))
+        missing = [k for k in MESH_SHARDED if not man[k]["sharded"]]
+        _require(not missing, f"mesh: tp {tp}: silently de-sharded: {missing}")
+        split = sorted(k for k, v in man.items() if v["sharded"])
+        print(f"mesh: manifest at tp {tp} over [{dev}] x 8 (dp {8 // tp}): {len(split)} leaves "
+              f"sharded, the twelve transformer products among them; flow_lm/tf/in_proj "
+              f"{man['flow_lm/tf/in_proj']['shape']} {man['flow_lm/tf/in_proj']['spec']}, "
+              f"ff2 {man['flow_lm/tf/ff2']['spec']}")
+    torch.cuda.empty_cache()
+
+
+def _mesh_f32(model, dev, smi: str) -> dict:
+    """(b) f32 mesh engines against single-device engines on the same
+    weights: tp 2 at B = 2, and dp 2 x tp 2 at B = 4 with two admitted
+    requests of other voices and texts, its launches counted (flow_blocks
+    = frames x steps x dp, decode_attention = frames x layers x dp x tp)."""
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+    from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams
+
+    cfg = dataclasses.replace(model.config, runtime=dataclasses.replace(
+        model.config.runtime, compute_dtype="float32"))
+    tokens, n = _mesh_tokens(model, MESH_TEXT, 2)
+    out = {}
+    ref = _mesh_decode(Engine(cfg, model.params, dev, batch_size=2), tokens, n, 2, 11)
+    got = _mesh_decode(Engine(cfg, model.params, batch_size=2,
+                              mesh=make_mesh(2, devices=[dev] * 2)), tokens, n, 2, 11)
+    lsb, dl = _mesh_gap(got[0], ref[0], got[1], ref[1])
+    atol, rtol = MESH_LATENT_TOL
+    _require(lsb <= MESH_LSB, f"mesh: f32 tp 2 vs one device: {lsb} int16 LSB")
+    _require(bool(np.all(np.abs(got[1] - ref[1]) <= atol + rtol * np.abs(ref[1]))),
+             f"mesh: f32 tp 2 latents differ by {dl}")
+    print(f"mesh: f32 tp 2 over [{dev}] x 2, B 2, prefill + 2 chunks of {MESH_FRAMES} frames "
+          f"at temp 0.5 [{smi}]: audio within {lsb} int16 LSB (bound {MESH_LSB}), latents max "
+          f"|diff| {dl:.3e} (atol {atol}, rtol {rtol}) of one device")
+    out["tp2"] = {"lsb": lsb, "latent": dl}
+
+    ve = Engine(cfg, model.params, dev)
+    voices = []
+    for seed in (21, 22):
+        wav = _synthetic_voice(3.0, model.sample_rate, seed)[0]
+        cond, frames = ve.encode_voice(wav)
+        st = ve.prefill_conditioning(ve.new_state(), cond, frames)
+        voices.append({k: st[k] for k in ("kc", "vc", "pos")})
+    rows = [_mesh_tokens(model, t, 1) for t in MESH_TEXTS]
+
+    def admitted(eng):
+        st = eng.new_state()
+        for slot, vs, (tok, k) in zip((0, 2), voices, rows):
+            st = eng.admit_prefill_slot(st, slot, vs, eng.pad_token_row(tok), k)
+        return _mesh_decode(eng, None, 0, 2, 12, state=st)
+
+    ref = admitted(Engine(cfg, model.params, dev, batch_size=4))
+    mesh = make_mesh(4, tp=2, devices=[dev] * 4)
+    eng = Engine(cfg, model.params, batch_size=4, mesh=mesh)
+    fb.flow_blocks.launches = 0
+    _attn_reset()
+    torch.cuda.synchronize()
+    got = admitted(eng)
+    torch.cuda.synchronize()
+    launches = {"flow_blocks": fb.flow_blocks.launches,
+                "decode_attention": da.decode_attention.launches}
+    dp, tp, frames = mesh.shape["dp"], mesh.shape["tp"], 2 * MESH_FRAMES
+    layers, steps = cfg.flow_lm.transformer.num_layers, GenParams().lsd_decode_steps
+    want = {"flow_blocks": frames * steps * dp, "decode_attention": frames * layers * dp * tp}
+    _require(launches == want, f"mesh: dp 2 x tp 2 launches {launches}, the rules give {want}")
+    lanes = [_mesh_gap(got[0][i], ref[0][i], got[1][i], ref[1][i])[0] for i in range(4)]
+    apart = int(np.abs(ref[0][0] - ref[0][2]).max())
+    _require(max(lanes) <= MESH_LSB, f"mesh: dp 2 x tp 2 lanes vs one device: {lanes} LSB")
+    _require(apart > 1, "mesh: the two admitted requests are the same audio")
+    print(f"mesh: f32 dp 2 x tp 2 over [{dev}] x 4, B 4, two admitted requests (slots 0 and 2: "
+          f"synthetic voices, other texts), 2 chunks [{smi}]: lanes within {lanes} int16 LSB "
+          f"(bound {MESH_LSB}) of one device; the two requests {apart} LSB apart; launches "
+          f"flow_blocks {launches['flow_blocks']} = frames x steps x dp, decode_attention "
+          f"{launches['decode_attention']} = frames x {layers} x dp x tp")
+    out["dp2tp2"] = {"lanes_lsb": lanes, "requests_apart_lsb": apart, "launches": launches}
+    del ve, voices
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_qcount(view: dict, steps: int, rows: int, frames: int, chunks: int,
+                 bucket: int) -> int:
+    """qlinear launches the shape rule predicts for one dp group (``rows``
+    lanes) over a prefill of ``bucket`` tokens and ``chunks`` chunks of
+    MESH_FRAMES frames: each rank launches its shard of a split product."""
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.ops.qtensor import QTensor
+    from pocket_tts_tpu_torch.parallel.mesh import Shards
+
+    def count(leaf, stacked: bool) -> int:
+        parts = leaf.parts if isinstance(leaf, Shards) else [leaf]
+        if not isinstance(parts[0], QTensor):
+            return 0
+        return len(parts) * (parts[0].q.shape[0] if stacked else 1)
+
+    fl, dec = view["flow_lm"], view["mimi"]["dec_tf"]
+    backbone = sum(count(v, True) for v in fl["tf"].values())
+    frame = backbone + count(fl["input_w"], False) + count(fl["flow"]["cond_w"], False)
+    flow = sum(count(fl["flow"][k], False) for k in ("in_w", "final_ada_w", "final_w"))
+    codec = sum(count(v, True) for v in dec["layers"].values()) + sum(
+        count(v, False) for k, v in dec.items() if k != "layers")
+    n = backbone if rows * bucket <= ql.MAX_ROWS else 0
+    n += frames * (frame + steps * flow) if rows <= ql.MAX_ROWS else 0
+    return n + (chunks * codec if 16 * MESH_FRAMES * rows <= ql.MAX_ROWS else 0)
+
+
+def _mesh_kernels(eng_q8, eng_bf16, st_bf16, dev, smi: str) -> dict:
+    """(c) the kernels at the shard shapes the tp 2 engines give them, against
+    their plain versions: qlinear on the int8 engine's own shards (and int4
+    at the same shapes), decode attention on the bf16 engine's cache shards
+    (8 of 16 heads each)."""
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.parallel.mesh import gather
+
+    g = torch.Generator().manual_seed(13)
+    tf = eng_q8._views[0]["flow_lm"]["tf"]
+    worst, shapes = 0.0, []
+    for name in ("in_proj", "ff1", "ff2"):
+        for r, part in enumerate(tf[name].parts):
+            w = part[0]  # layer 0 of rank r's shard
+            n, k = ql.as_matrix(w).shape
+            cases = [(w, 8)] + [(_qlinear_case(g, 1, n, k, 4, torch.bfloat16, dev)[1], 4)]
+            for wq, bits in cases:
+                for m in (1, 4):
+                    x = torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
+                    got, ref = ql.qlinear(x, wq), ql.qlinear_reference(x, wq)
+                    tol = _qlinear_tol(torch.bfloat16, ref)
+                    err = (got.float() - ref.float()).abs().max().item()
+                    _require(err <= tol, f"mesh: qlinear {name} rank {r} int{bits} M={m} "
+                                         f"{n}x{k}: err {err} > {tol}")
+                    worst = max(worst, err / tol)
+            shapes.append(f"{name} {n}x{k}")
+    pos = gather(st_bf16["pos"], dev)
+    d_worst = 0.0
+    for r, (kc, vc) in enumerate(zip(st_bf16["kc"].blocks[0], st_bf16["vc"].blocks[0])):
+        b, _, h, d = kc[0].shape
+        q = torch.randn(b, 1, h, d, generator=g).to(dev, torch.bfloat16)
+        got = da.decode_attention(q, kc[0], vc[0], pos)
+        ref = da.decode_attention_reference(q, kc[0], vc[0], pos)
+        bound = da.error_bound(q, kc[0], vc[0], pos, ref)
+        over = ((got.float() - ref.float()).abs() / bound).max().item()
+        _require(over <= 1.0, f"mesh: decode_attention rank {r} H={h}: err / bound {over}")
+        d_worst = max(d_worst, over)
+    print(f"mesh: kernels at the tp 2 shard shapes [{smi}]: qlinear (bf16 x, the int8 engine's "
+          f"own shards and int4 at their shapes, M 1 / 4) {', '.join(sorted(set(shapes)))}: "
+          f"worst err / tol {worst:.3f}; decode_attention on each rank's cache shard (H 8, "
+          f"pos {int(pos[0])}): worst err / bound {d_worst:.3f}")
+    return {"qlinear_worst_err_over_tol": worst, "decode_attention_worst_err_over_bound": d_worst}
+
+
+def _mesh_narrow(model, dev, smi: str) -> dict:
+    """(c) bf16 and int8 engines at tp 2 (B = 1, the single stream's shape):
+    the kernels at their shard shapes, the counted run of the mesh path,
+    two runs bit for bit, the gap to one device, ms per frame against one
+    device in turns."""
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.parallel import mesh as pm
+    from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams, _bucket
+    from pocket_tts_tpu_torch.runtime.quantize import quantize_params
+
+    cfg = model.config
+    tokens, n = _mesh_tokens(model, MESH_TEXT, 1)
+    bucket = _bucket(tokens.shape[1], cfg.runtime.text_buckets)
+    mesh = pm.make_mesh(2, devices=[dev] * 2)
+    qparams = quantize_params(model.params, 8)
+    engines = {"bf16": (Engine(cfg, model.params, dev), Engine(cfg, model.params, mesh=mesh)),
+               "int8": (Engine(cfg, qparams, dev), Engine(cfg, qparams, mesh=mesh))}
+    runs = {kind: [_mesh_decode(e, tokens, n, 2, 14) for e in pair]
+            for kind, pair in engines.items()}
+    out = {"kernels": _mesh_kernels(engines["int8"][1], engines["bf16"][1],
+                                    runs["bf16"][1][2], dev, smi)}
+
+    # the counted run of the mesh path: the int8 engine at tp 2
+    eng = engines["int8"][1]
+    chunks, frames = 2, 2 * MESH_FRAMES
+    fb.flow_blocks.launches = 0
+    _attn_reset()
+    ql.qlinear.launches = 0
+    torch.cuda.synchronize()
+    again = _mesh_decode(eng, tokens, n, chunks, 14)
+    torch.cuda.synchronize()
+    launches = {"flow_blocks": fb.flow_blocks.launches,
+                "decode_attention": da.decode_attention.launches,
+                "qlinear": ql.qlinear.launches}
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    layers, steps = cfg.flow_lm.transformer.num_layers, GenParams().lsd_decode_steps
+    want = {"flow_blocks": frames * steps * dp, "decode_attention": frames * layers * dp * tp,
+            "qlinear": _mesh_qcount(eng._views[0], steps, 1, frames, chunks, bucket)}
+    _require(launches == want, f"mesh: launches {launches}, the rules give {want}")
+    _require(np.array_equal(again[0], runs["int8"][1][0]), "mesh: int8 tp 2 runs differ")
+    print(f"mesh: counted run, int8 engine at tp 2 (B 1, {frames} frames) [{smi}]: "
+          f"flow_blocks {launches['flow_blocks']} = frames x steps x dp; decode_attention "
+          f"{launches['decode_attention']} = frames x {layers} x dp x tp (large_t "
+          f"{da.decode_attention.large_t}); qlinear {launches['qlinear']} = the shape rule's "
+          f"(each rank its shards)")
+    out["launches"] = launches
+
+    for kind, (one, sharded) in engines.items():
+        b = _mesh_decode(sharded, tokens, n, 2, 14)
+        _require(np.array_equal(b[0], runs[kind][1][0]), f"mesh: {kind} tp 2 runs differ")
+        lsb, dl = _mesh_gap(runs[kind][1][0], runs[kind][0][0], runs[kind][1][1],
+                            runs[kind][0][1])
+        times = {"one": [], "tp2": []}
+        for which in ("one", "tp2", "tp2", "one"):
+            e = one if which == "one" else sharded
+            st = e.prefill_tokens(e.new_state(), tokens, n)
+            _, ms = _timed(lambda: _mesh_decode(e, None, 0, 2, 15, state=st))
+            times[which].append(ms / frames)
+        print(f"mesh: {kind} tp 2 vs one device, B 1, 2 chunks of {MESH_FRAMES} frames "
+              f"[{smi}]: two runs bit-identical; gap to one device (partial sums added in "
+              f"f32) {lsb} int16 LSB, latents max |diff| {dl:.3e}; ms per frame "
+              f"one device {times['one'][0]:.3f} / {times['one'][1]:.3f}, tp 2 "
+              f"{times['tp2'][0]:.3f} / {times['tp2'][1]:.3f} (in turns)")
+        out[kind] = {"gap": {"lsb": lsb, "latent": dl}, "ms_per_frame": times}
+    del engines, runs, qparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stream_kernels(run) -> dict:
+    """Kernel names by CUDA stream over one torch.profiler window of run()."""
+    trace = Path(tempfile.mkdtemp()) / "trace.json"
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    by_stream: dict = {}
+    for e in json.loads(trace.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            sid = e.get("args", {}).get("stream", e.get("tid"))
+            by_stream.setdefault(sid, []).append(_kernel_name(e["name"]))
+    trace.unlink()
+    return by_stream
+
+
+def _mesh_staged(model, dev, smi: str) -> dict:
+    """(d) the codec staged on a CUDA stream of its own on this card, chunk
+    schedule: generate and generate_stream bit for bit the unstaged model's,
+    generate within 1 LSB of the default fused segment; a profile window
+    with the codec's kernels on a stream of their own; x-realtime in turns."""
+    from pocket_tts_tpu_torch import TTSModel
+
+    gen = dataclasses.replace(model.gen, temp=0.7, eos_threshold=SEGMENT_UNREACHABLE)
+    chunked = dataclasses.replace(model.config, runtime=dataclasses.replace(
+        model.config.runtime, segment_dispatch="chunked"))
+
+    def make(cfg):
+        return TTSModel(cfg, model.params, gen=gen, has_real_weights=False, device=dev)
+
+    plain, staged, fused = make(chunked), make(chunked), make(model.config)
+    staged.engine.enable_staged_codec(dev)
+    a, b, c = (m.generate(STAGED_TEXT) for m in (plain, staged, fused))
+    _require(a.size > 0 and np.array_equal(a, b), "mesh: staged generate differs from unstaged")
+    lsb = int(np.abs(_pcm(b) - _pcm(c)).max()) if b.shape == c.shape else None
+    _require(lsb is not None and lsb <= 1, f"mesh: staged vs fused generate: {lsb} LSB")
+    s1, s2 = (np.concatenate(list(m.generate_stream(STAGED_TEXT))) for m in (plain, staged))
+    _require(np.array_equal(s1, s2), "mesh: staged generate_stream differs from unstaged")
+    by_stream = _stream_kernels(lambda: staged.generate(NARROW_TEXT))
+    ar = {s for s, names in by_stream.items()
+          if any("flow_chain" in x or "decode_attention" in x for x in names)}
+    codec = {s: names for s, names in by_stream.items() if s not in ar}
+    _require(len(ar) == 1 and codec, f"mesh: staged profile: frame kernels on streams {ar}, "
+                                      f"others on {sorted(codec)}")
+    top = collections.Counter(x for names in codec.values() for x in names).most_common(3)
+    print(f"mesh: staged codec on one card [{smi}]: generate and generate_stream bit-identical "
+          f"to unstaged (chunk schedule); generate within {lsb} int16 LSB of the fused segment; "
+          f"profile of a short generate: the frames' kernels on stream {sorted(ar)[0]} "
+          f"({len(by_stream[sorted(ar)[0]])} launches), the codec's on stream(s) "
+          f"{sorted(codec)} ({sum(len(v) for v in codec.values())} launches; top "
+          f"{', '.join(f'{x} x{k}' for x, k in top)})")
+    # the device's side of both: ms and launches per frame, busy share
+    profiles = {which: _kernel_profile(lambda m=m: m.generate(STAGED_TEXT), m.engine,
+                                       f"mesh (d) {which}", smi)
+                for which, m in (("unstaged", plain), ("staged", staged))}
+    xrt = {"unstaged": [], "staged": []}
+    for which in ("unstaged", "staged", "staged", "unstaged"):
+        m = plain if which == "unstaged" else staged
+        audio, ms = _timed(lambda: m.generate(STAGED_TEXT))
+        xrt[which].append(audio.size / model.sample_rate / (ms / 1e3))
+    print(f"mesh: staged x-realtime {xrt['staged'][0]:.2f} / {xrt['staged'][1]:.2f}, unstaged "
+          f"{xrt['unstaged'][0]:.2f} / {xrt['unstaged'][1]:.2f} (in turns, chunk schedule, "
+          f"{a.size // model.frame_size} frames) [{smi}]")
+    return {"staged_vs_fused_lsb": lsb, "x_realtime": xrt, "profiles": profiles,
+            "codec_launches": sum(len(v) for v in codec.values())}
+
+
+def phase_mesh(model, dev, smi: str) -> dict:
+    """Phase 11: the dp x tp mesh and the staged codec on this card."""
+    t0 = time.perf_counter()
+    _mesh_layout(model, dev, smi)
+    out = {"f32": _mesh_f32(model, dev, smi), "narrow": _mesh_narrow(model, dev, smi),
+           "staged": _mesh_staged(model, dev, smi)}
+    print(f"mesh: phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _qlinear_entry(narrow: dict, serve: dict, train: dict) -> dict:
     """The kernels line's qlinear entry: the main-path numbers at B = 1 on ff1
     (int8, 4096 x 1024, bf16 x), and every timed shape cold and warm."""
@@ -3073,6 +3461,8 @@ def main() -> None:
     narrow, q8fp8 = phase_narrow(model, dev)
     serve = phase_serve(model, q8fp8, smi)
     train = phase_train(model, q8fp8, smi)
+    mesh = phase_mesh(model, dev, smi)
+    mesh_launches, mesh_dp2 = mesh["narrow"]["launches"], mesh["f32"]["dp2tp2"]["launches"]
     per_b = {key: {str(b): kern[b][key] for b in TIMED_BATCHES}
              for key in ("device_us_cold", "device_us_warm", "bound_us", "roofline_share",
                          "graph_plain_us", "graph_plain_us_warm")}
@@ -3088,6 +3478,8 @@ def main() -> None:
         "launches_train_generate": train["full"]["generate_launches"],
         "launches_adapters": train["bank"]["flow_launches"],
         "launches_adapters_quantized": train["bank_quantized"]["flow_launches"],
+        "launches_mesh": mesh_launches["flow_blocks"],
+        "launches_mesh_dp2": mesh_dp2["flow_blocks"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern[1]["ms"], "plain_ms": kern[1]["plain_ms"],
         "bound_ms": kern[1]["bound_us"] / 1e3, "bound_by": kern[1]["bound_by"],
@@ -3095,12 +3487,15 @@ def main() -> None:
         "ms_b4": kern[4]["ms"], "plain_ms_b4": kern[4]["plain_ms"],
         "ms_b16": kern[16]["ms"], "plain_ms_b16": kern[16]["plain_ms"],
         **per_b,
-    }, _qlinear_entry(narrow, serve, train), _decode_entry(dec, {
+    }, {**_qlinear_entry(narrow, serve, train), "launches_mesh": mesh_launches["qlinear"]},
+        {**_decode_entry(dec, {
         "main": attn_main, "voice": attn_voice, "batch": batch["attn"],
         "narrow": narrow["generate"]["int8+fp8"]["attn"], "fp8_voice": narrow["voice"]["attn"],
         "narrow_batch": narrow["batch"]["attn"], "serve": serve["attn"],
         "train_generate": train["full"]["attn"]},
-        {"b1": profile_b1, "b16": batch["profile"]}, segment["attn"])]}))
+        {"b1": profile_b1, "b16": batch["profile"]}, segment["attn"]),
+         "launches_mesh": mesh_launches["decode_attention"],
+         "launches_mesh_dp2": mesh_dp2["decode_attention"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

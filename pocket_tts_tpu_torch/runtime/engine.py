@@ -28,6 +28,13 @@
   leaf's dtype, ``q`` never), an fp8 KV cache (``kv_dtype``), and the mu-law
   wire (``transport_format="mulaw"``: encoded on the device, decoded on the
   host).
+* Multi-device (``mesh=``, ``parallel/mesh.py``): params and state are
+  placed by the sharding rules; dp group g runs lanes ``[g B/dp, (g+1)
+  B/dp)`` on its own devices, each layer split over its tp ranks.  One host
+  loop enqueues every group's launches in turn.
+* The staged codec (``enable_staged_codec``): the Mimi decode of each chunk
+  runs on another device, or on a CUDA stream of its own on the engine's
+  device, chained to the frames by an event and one copy of the latents.
 """
 
 from __future__ import annotations
@@ -46,6 +53,15 @@ from pocket_tts_tpu_torch.ops import mulaw
 from pocket_tts_tpu_torch.ops.attention import raw_view
 from pocket_tts_tpu_torch.ops.conv import pad_for_frame
 from pocket_tts_tpu_torch.ops.qtensor import QTensor
+from pocket_tts_tpu_torch.parallel.mesh import (
+    Mesh,
+    Shards,
+    gather,
+    group_view,
+    join_groups,
+    shard_params,
+    shard_state,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -141,14 +157,32 @@ def place_params(params: dict, device: torch.device, dtype: torch.dtype,
     return {"flow_lm": fl, "mimi": _map(params["mimi"], cast(codec_dtype))}
 
 
+# where the operations a mesh engine does not run yet are queued
+MESH_TODO = "ROADMAP Queue 1 item 5"
+
+
 class Engine:
     """Generation for one (config, device, batch size).  ``params`` may be
-    another engine's placed params: they are then shared, not copied."""
+    another engine's placed params: they are then shared, not copied.
 
-    def __init__(self, cfg: Config, params: dict, device: torch.device | str,
-                 batch_size: int = 1):
+    ``device`` defaults to ``cuda``.  With a ``mesh`` the engine's device is
+    the mesh's ``[0, 0]`` (a ``device`` that differs raises), ``batch_size``
+    must be a multiple of its dp, and the params are placed by
+    ``shard_params``; ``new_state`` gives a sharded state."""
+
+    def __init__(self, cfg: Config, params: dict, device: torch.device | str | None = None,
+                 batch_size: int = 1, mesh: Mesh | None = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            lead = mesh.devices[0, 0]
+            if device is not None and torch.device(device) != lead:
+                raise ValueError(f"Engine: device {device} is not the mesh's first device {lead}")
+            if batch_size % mesh.shape["dp"]:
+                raise ValueError(f"Engine: batch_size {batch_size} is not a multiple of the "
+                                 f"mesh's dp {mesh.shape['dp']}")
+            device = lead
+        self.device = torch.device("cuda" if device is None else device)
         self.batch = batch_size
         self.plans = MimiPlans(cfg.mimi)
         rcfg = cfg.runtime
@@ -172,6 +206,13 @@ class Engine:
         # in float32 they agree within 2 LSB.
         self.codec_dtype = torch.float32
         self.params = place_params(params, self.device, self.dtype, self.codec_dtype)
+        # each dp group's params (group_view of the sharded tree on a mesh;
+        # one device is one group) and its lead device
+        self._views, self._leads = [self.params], [self.device]
+        if mesh is not None:
+            self.params = shard_params(self.params, mesh)
+            self._views = [group_view(self.params, g) for g in range(mesh.shape["dp"])]
+            self._leads = [mesh.lead(g) for g in range(mesh.shape["dp"])]
         # autoregressive frames computed by decode_frames (overshoot included),
         # and the flow-net evaluations they ran (each one flow_blocks call)
         self.frames_decoded = 0
@@ -179,12 +220,20 @@ class Engine:
         self._fresh_mimi1 = None  # read-only fresh B = 1 codec state (admission)
         self.adapter_bank = None  # set_adapter_bank
         self._lora_stacks = None
+        # the staged codec (enable_staged_codec): its device, its Mimi params
+        # there, and its CUDA stream
+        self._codec_device = None
+        self._mimi_params_staged = None
+        self._codec_stream = None
 
     def set_adapter_bank(self, bank) -> None:
         """Attach a ``training.lora.AdapterBank``: its stacked factors are
         placed once on the device in float32.  Dispatches opt in with a
         per-slot row (``decode_frames(lora_w=)``, ``admit_prefill_slot(
         lora_row=)``); those without one keep the plain path."""
+        if self.mesh is not None:
+            raise ValueError(f"set_adapter_bank: per-slot LoRA on a mesh engine waits for "
+                             f"{MESH_TODO}")
         self.adapter_bank = bank
         self._lora_stacks = {k: {n: torch.as_tensor(t).to(self.device, torch.float32)
                                  for n, t in f.items()} for k, f in bank.stacks.items()}
@@ -198,22 +247,63 @@ class Engine:
     # -- state -------------------------------------------------------------
 
     def _fresh_decode_state(self, batch: int = 1) -> dict:
-        bos = self.params["flow_lm"]["bos_emb"]
+        bos = self._views[0]["flow_lm"]["bos_emb"]
         return {"latent": bos.expand(batch, self.ldim).clone(),
-                "mimi": mimi.init_decode_state(self.plans, batch, self.codec_dtype,
-                                               self.device)}
+                "mimi": self._fresh_mimi(batch)}
+
+    def _fresh_mimi(self, batch: int) -> dict:
+        """A fresh codec state, on the codec's device (and made on the codec's
+        stream, which alone reads it) when the codec is staged."""
+        if self._codec_stream is not None:
+            with torch.cuda.stream(self._codec_stream):
+                return mimi.init_decode_state(self.plans, batch, self.codec_dtype,
+                                              self._codec_device)
+        return mimi.init_decode_state(self.plans, batch, self.codec_dtype,
+                                      self._codec_device or self.device)
 
     def new_state(self, batch: int | None = None) -> dict:
         """Empty state of ``batch`` lanes (default: the engine's batch size):
-        zero cache, cursor 0."""
+        zero cache, cursor 0; placed by ``shard_state`` on a mesh."""
         batch = batch or self.batch
         tcfg = self._tcfg
         kc, vc = transformer.init_cache(tcfg.num_layers, batch, self._rcfg.max_seq,
                                         tcfg.num_heads, tcfg.head_dim, self.kv_dtype,
                                         self.device)
-        return {"kc": kc, "vc": vc,
-                "pos": torch.zeros((batch,), dtype=torch.int32, device=self.device),
-                **self._fresh_decode_state(batch)}
+        state = {"kc": kc, "vc": vc,
+                 "pos": torch.zeros((batch,), dtype=torch.int32, device=self.device),
+                 **self._fresh_decode_state(batch)}
+        return state if self.mesh is None else self._shard(state)
+
+    def _shard(self, state: dict) -> dict:
+        if state["pos"].shape[0] % self.mesh.shape["dp"]:
+            raise ValueError(f"a state of {state['pos'].shape[0]} lanes on a mesh of dp "
+                             f"{self.mesh.shape['dp']}")
+        return shard_state(state, self.mesh)
+
+    def _groups(self, state: dict) -> list[dict]:
+        """Each dp group's view of a state (its tp-split caches as Shards); on
+        one device a shallow copy of the state, the one group."""
+        if self.mesh is None:
+            return [dict(state)]
+        return [group_view(state, g) for g in range(self.mesh.shape["dp"])]
+
+    def _join(self, state: dict, views: list[dict]) -> dict:
+        """The state of ``state``'s placement whose group g is ``views[g]``."""
+        return views[0] if self.mesh is None else join_groups(state, views)
+
+    def _slot(self, state: dict, slot: int) -> tuple[int, slice]:
+        """(group, lane within the group) of lane ``slot`` of ``state``."""
+        lanes = state["pos"].shape[0]
+        if not 0 <= slot < lanes:
+            raise ValueError(f"slot {slot} outside the state's {lanes} lanes")
+        per_group = lanes // len(self._leads)
+        return slot // per_group, slice(slot % per_group, slot % per_group + 1)
+
+    def _on_device(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """The groups' outputs joined on the engine's device (one as it is)."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.device, non_blocking=True) for p in parts])
 
     def put(self, arr, dtype: torch.dtype) -> torch.Tensor:
         """Host array (or a tensor already on the device) -> tensor on the
@@ -230,7 +320,13 @@ class Engine:
     def reset_for_segment(self, voice_state: dict) -> dict:
         """Per-segment restart from a voice state: the FlowLM cache is COPIED
         from the voice snapshot (decoding writes in place and must never touch
-        the shared snapshot); latent and Mimi decoder start fresh."""
+        the shared snapshot); latent and Mimi decoder start fresh, the Mimi
+        state on the codec's device when it is staged.  On a mesh the copy is
+        the snapshot placed by ``shard_state`` (a sharded snapshot is gathered
+        first)."""
+        if self.mesh is not None:
+            vs = gather({k: voice_state[k] for k in ("kc", "vc", "pos")}, self.device)
+            return self._shard({**vs, **self._fresh_decode_state(vs["pos"].shape[0])})
         return {"kc": _clone(voice_state["kc"]), "vc": _clone(voice_state["vc"]),
                 "pos": voice_state["pos"].clone(), **self._fresh_decode_state()}
 
@@ -240,20 +336,35 @@ class Engine:
         """Install a B = 1 voice snapshot (kc, vc, pos) into lane ``slot`` of a
         batched state and reset that lane's latent and Mimi decoder.  Every
         write is in place and touches that lane only; on one stream it runs
-        after the chunks already enqueued, which read the lane's old data."""
-        lane = slice(slot, slot + 1)
-        for name in ("kc", "vc"):  # an fp8 cache is copied as its bytes
-            raw_view(state[name])[:, lane].copy_(raw_view(voice_state[name]))
-        state["pos"][lane].copy_(voice_state["pos"])
-        state["latent"][lane].copy_(self.params["flow_lm"]["bos_emb"])
+        after the chunks already enqueued, which read the lane's old data.
+        On a mesh the slot is lane ``slot % (B / dp)`` of group ``slot //
+        (B / dp)``, and the unsharded snapshot's heads are copied to the
+        ranks slice by slice."""
         if self._fresh_mimi1 is None:
             self._fresh_mimi1 = mimi.init_decode_state(self.plans, 1, self.codec_dtype,
                                                        self.device)
-        fresh, dec = self._fresh_mimi1, state["mimi"]
+        g, lane = self._slot(state, slot)
+        view = self._groups(state)[g]
+
+        def install(dst, src: torch.Tensor, lane_axis: int) -> None:
+            """``src`` into ``dst``'s lane (an fp8 cache as its bytes); each
+            rank of a cache split on heads takes its heads of ``src``."""
+            pairs = [(dst, src)]
+            if isinstance(dst, Shards):
+                pairs = zip(dst.parts, [_clone(p) for p in src.chunk(len(dst), dim=dst.dim)])
+            for d, piece in pairs:
+                raw_view(d).narrow(lane_axis, lane.start, 1).copy_(raw_view(piece),
+                                                                   non_blocking=True)
+
         for name in ("kc", "vc"):  # [L, B, ...]
-            dec[name][:, lane].copy_(fresh[name])
+            install(view[name], voice_state[name], 1)
+        install(view["pos"], voice_state["pos"], 0)
+        install(view["latent"], self._views[g]["flow_lm"]["bos_emb"], 0)
+        fresh, dec = self._fresh_mimi1, view["mimi"]
+        for name in ("kc", "vc"):
+            install(dec[name], fresh[name], 1)
         for name in ("up", "pos", "dec"):
-            _map2(dec[name], fresh[name], lambda dst, src: dst[lane].copy_(src))
+            _map2(dec[name], fresh[name], lambda dst, src: install(dst, src, 0))
         return state
 
     def pad_token_row(self, tokens: np.ndarray) -> torch.Tensor:
@@ -276,16 +387,33 @@ class Engine:
         lora, lora_w = (None, None) if lora_row is None else self._lora(
             np.asarray(lora_row, np.float32).reshape(1, -1), "lora_row")
         state = self.admit_slot(state, slot, voice_state)
-        lane = slice(slot, slot + 1)
-        params = self.params["flow_lm"]
-        emb = flow_lm.embed_text(params, tokens_row.to(self.device, non_blocking=True))
-        t_valid = torch.full((1,), n_tokens, dtype=torch.int32, device=self.device)
-        _, _, pos = flow_lm.prefill(params, self.cfg, state["kc"][:, lane], state["vc"][:, lane],
-                                    state["pos"][lane], emb, t_valid, lora, lora_w)
-        state["pos"][lane].copy_(pos)
+        g, lane = self._slot(state, slot)
+        view, params, dev = self._groups(state)[g], self._views[g]["flow_lm"], self._leads[g]
+
+        def cut(c):  # the lane's view of a cache, on every rank when split on heads
+            return Shards([p[:, lane] for p in c.parts], c.dim) if isinstance(
+                c, Shards) else c[:, lane]
+
+        emb = flow_lm.embed_text(params, tokens_row.to(dev, non_blocking=True))
+        t_valid = torch.full((1,), n_tokens, dtype=torch.int32, device=dev)
+        _, _, new_pos = flow_lm.prefill(params, self.cfg, cut(view["kc"]), cut(view["vc"]),
+                                        view["pos"][lane], emb, t_valid, lora, lora_w)
+        view["pos"][lane].copy_(new_pos)
         return state
 
     # -- prefill -----------------------------------------------------------
+
+    def _prefill(self, state: dict, emb: torch.Tensor, t_valid: torch.Tensor) -> dict:
+        """``flow_lm.prefill`` of ``emb`` [B, T, E] (``t_valid`` [B]), each dp
+        group's lanes on its own devices."""
+        views = self._groups(state)
+        per_group = emb.shape[0] // len(views)
+        for g, v in enumerate(views):
+            lanes, dev = slice(g * per_group, (g + 1) * per_group), self._leads[g]
+            v["kc"], v["vc"], v["pos"] = flow_lm.prefill(
+                self._views[g]["flow_lm"], self.cfg, v["kc"], v["vc"], v["pos"],
+                emb[lanes].to(dev, non_blocking=True), t_valid[lanes].to(dev, non_blocking=True))
+        return self._join(state, views)
 
     def prefill_tokens(self, state: dict, tokens: np.ndarray,
                        n_valid: int | np.ndarray | list) -> dict:
@@ -299,26 +427,20 @@ class Engine:
         bucket = _bucket(tokens.shape[1], self._rcfg.text_buckets)
         padded = np.zeros((b, bucket), np.int32)
         padded[:, : tokens.shape[1]] = tokens
-        params = self.params["flow_lm"]
-        emb = flow_lm.embed_text(params, self.put(padded, torch.int32))
+        emb = flow_lm.embed_text(self._views[0]["flow_lm"], self.put(padded, torch.int32))
         counts = np.asarray(n_valid, np.int32)
         if counts.ndim == 0:
             counts = np.full((b,), counts, np.int32)
         elif counts.shape != (b,):
             raise ValueError(f"prefill_tokens: n_valid of shape {counts.shape} for {b} lanes")
-        t_valid = self.put(counts, torch.int32)
-        kc, vc, pos = flow_lm.prefill(params, self.cfg, state["kc"], state["vc"],
-                                      state["pos"], emb, t_valid)
-        return {**state, "kc": kc, "vc": vc, "pos": pos}
+        return self._prefill(state, emb, self.put(counts, torch.int32))
 
     def prefill_conditioning(self, state: dict, cond: torch.Tensor, n_valid: int) -> dict:
         """Prefill the first ``n_valid`` frames of speaker conditioning
         ``cond`` [B, T, d_model] (float32; cast here to the backbone dtype)."""
         b = cond.shape[0]
         t_valid = torch.full((b,), n_valid, dtype=torch.int32, device=self.device)
-        kc, vc, pos = flow_lm.prefill(self.params["flow_lm"], self.cfg, state["kc"],
-                                      state["vc"], state["pos"], cond.to(self.dtype), t_valid)
-        return {**state, "kc": kc, "vc": vc, "pos": pos}
+        return self._prefill(state, cond.to(self.device, self.dtype), t_valid)
 
     # -- voice encoding ----------------------------------------------------
 
@@ -329,9 +451,10 @@ class Engine:
         return max(self._rcfg.text_buckets) + 192
 
     def _encode(self, audio: torch.Tensor) -> torch.Tensor:
-        lat = mimi.encode_to_latent(self.params["mimi"], self.plans, audio,
+        params = self._views[0]  # on a mesh: dp group 0, its tp ranks
+        lat = mimi.encode_to_latent(params["mimi"], self.plans, audio,
                                     block=self._rcfg.encoder_block)
-        return flow_lm.speaker_project(self.params["flow_lm"], lat.transpose(1, 2))
+        return flow_lm.speaker_project(params["flow_lm"], lat.transpose(1, 2))
 
     def encode_voice(self, audio, cap: bool = True) -> tuple[torch.Tensor, int]:
         """24 kHz mono waveform [T] or [1, T] -> (conditioning
@@ -370,11 +493,11 @@ class Engine:
         audio = pad_for_frame(audio, self.frame_size)
         samples = max(1, self._rcfg.voice_prompt_chunk_frames) * self.frame_size
         state = mimi.init_encode_state(self.plans, 1, self.codec_dtype, self.device)
-        conds = []
+        params, conds = self._views[0], []
         for start in range(0, audio.shape[-1], samples):
-            lat, state = mimi.encode_step(self.params["mimi"], self.plans, state,
+            lat, state = mimi.encode_step(params["mimi"], self.plans, state,
                                           audio[..., start:start + samples])
-            conds.append(flow_lm.speaker_project(self.params["flow_lm"], lat.transpose(1, 2)))
+            conds.append(flow_lm.speaker_project(params["flow_lm"], lat.transpose(1, 2)))
         return torch.cat(conds, dim=1)
 
     # -- decode ------------------------------------------------------------
@@ -407,7 +530,10 @@ class Engine:
         Every frame attends over the whole cache (masked past ``pos``), so a
         frame's arithmetic does not depend on how frames are grouped into
         chunks.  Returns (state, int16 audio [B, K * 1920], is_eos [B, K]),
-        both fresh tensors on the device (never views of the state).
+        both fresh tensors on the device (never views of the state); on a mesh
+        both on the engine's device (the mesh's first), the lanes of every dp
+        group joined.  With a staged codec the audio is on the codec's device,
+        ready for that device's current stream.
 
         ``temps`` / ``eos_thresholds``: optional per-slot [B] vectors (host
         arrays or device tensors) in place of ``gen``'s.  ``lsd_vec`` (host
@@ -416,7 +542,7 @@ class Engine:
         steps up to the batch maximum (the output does not depend on it).
         ``lora_w`` [B, N]: per-slot adapter rows (needs ``set_adapter_bank``;
         a zero row is the base model)."""
-        params = self.params["flow_lm"]
+        params = self._views[0]["flow_lm"]
         b = state["pos"].shape[0]
         lora, lora_w = (None, None) if lora_w is None else self._lora(lora_w, "lora_w")
         temp = gen.temp if temps is None else self.put(temps, torch.float32)
@@ -438,25 +564,100 @@ class Engine:
         else:
             steps, clamped, lsd_t, clamp = gen.lsd_decode_steps, None, None, gen.noise_clamp
             table = flow_mlp.time_embedding_table(params["flow"], steps)
-        kc, vc = state["kc"], state["vc"]
-        pos, latent = state["pos"], state["latent"]
-        latents, eos_logits = [], []
+
+        # each dp group (one on a single device) runs its lanes on its own
+        # devices, the groups in turn; every frame's noise is one [B, ldim]
+        # draw, split by group, so a mesh's lanes get the single device's draws
+        views = self._groups(state)
+        per_group = b // len(views)
+        lanes = [slice(g * per_group, (g + 1) * per_group) for g in range(len(views))]
+        per_lane = lsd_t is not None  # the [steps, B, dim] table of per-slot step counts
+        tables = [(table[:, ln] if per_lane else table).to(d, non_blocking=True)
+                  for ln, d in zip(lanes, self._leads)]
+        lsds = [lsd_t[ln].to(d, non_blocking=True) if per_lane else None
+                for ln, d in zip(lanes, self._leads)]
+        lora_ws = [None if lora_w is None else lora_w[ln] for ln in lanes]
+        latents, eos_logits = [[] for _ in views], [[] for _ in views]
         for _ in range(n_frames):
             noise = flow_lm.sample_noise(generator, (b, self.ldim), temp, clamp, self.device,
                                          clamped=clamped)
-            latent, eos_logit, _, _, pos = flow_lm.step(
-                params, self.cfg, kc, vc, pos, latent, noise, table, steps, lsd_vec=lsd_t,
-                lora=lora, lora_w=lora_w)
-            latents.append(latent)
-            eos_logits.append(eos_logit)
-        denorm = flow_lm.denormalize(params, torch.stack(latents, dim=1))  # [B, K, ldim]
-        audio, mimi_state = mimi.decode_step(self.params["mimi"], self.plans, state["mimi"],
-                                             denorm.transpose(1, 2))
-        is_eos = torch.stack(eos_logits, dim=-1) > eos_th
+            for g, v in enumerate(views):
+                v["latent"], eos_logit, _, _, v["pos"] = flow_lm.step(
+                    self._views[g]["flow_lm"], self.cfg, v["kc"], v["vc"], v["pos"],
+                    v["latent"], noise[lanes[g]].to(self._leads[g], non_blocking=True),
+                    tables[g], steps, lsd_vec=lsds[g], lora=lora, lora_w=lora_ws[g])
+                latents[g].append(v["latent"])
+                eos_logits[g].append(eos_logit)
+        audio = []
+        for g, v in enumerate(views):
+            denorm = flow_lm.denormalize(self._views[g]["flow_lm"],
+                                         torch.stack(latents[g], dim=1))  # [B, K, ldim]
+            pcm, v["mimi"] = self._codec(g, v["mimi"], denorm)
+            audio.append(pcm)
         self.frames_decoded += n_frames
         self.flow_evals += n_frames * steps
-        new_state = {"kc": kc, "vc": vc, "pos": pos, "latent": latent, "mimi": mimi_state}
-        return new_state, self._pcm16(audio), is_eos
+        is_eos = self._on_device([torch.stack(e, dim=-1) for e in eos_logits]) > eos_th
+        return self._join(state, views), self._on_device(audio), is_eos
+
+    def _codec(self, g: int, mimi_state: dict,
+               denorm: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """Dp group ``g``'s grouped Mimi decode of ``denorm`` [B, K, ldim] ->
+        (wire audio [B, K * 1920], next codec state); on the staged codec's
+        device and stream when it is staged (:meth:`enable_staged_codec`)."""
+        if self._codec_device is None:
+            audio, mimi_state = mimi.decode_step(self._views[g]["mimi"], self.plans, mimi_state,
+                                                 denorm.transpose(1, 2))
+            return self._pcm16(audio), mimi_state
+        stream = self._codec_stream
+        if stream is None:  # a CPU codec device: one stream of work
+            lat = denorm.to(self._codec_device)
+            audio, mimi_state = mimi.decode_step(self._mimi_params_staged, self.plans,
+                                                 mimi_state, lat.transpose(1, 2))
+            return self._pcm16(audio), mimi_state
+        # the codec waits for the frames enqueued so far and decodes on its own
+        # stream; the codec device's current stream, where the caller reads
+        # the audio, then waits for the codec.  On another card the frames'
+        # stream does not wait, so the next chunk's frames overlap this codec.
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            lat = denorm.to(self._codec_device, non_blocking=True)
+            if lat is denorm:  # read on the codec stream: not reused before it is done
+                denorm.record_stream(stream)
+            audio, mimi_state = mimi.decode_step(self._mimi_params_staged, self.plans,
+                                                 mimi_state, lat.transpose(1, 2))
+            pcm = self._pcm16(audio)
+        reader = torch.cuda.current_stream(self._codec_device)
+        reader.wait_stream(stream)
+        pcm.record_stream(reader)
+        return pcm, mimi_state
+
+    def enable_staged_codec(self, codec_device: torch.device | str) -> None:
+        """Stage parallelism: the frames on this engine's device, the Mimi
+        codec on ``codec_device`` (the port of the JAX package's two-device
+        pipeline).  Each ``decode_frames`` chunk's latents [B, K, 32] go to the
+        codec after an event; the codec's Mimi params are placed there once,
+        and ``reset_for_segment`` places each fresh Mimi state there.  The
+        codec runs on a CUDA stream of its own; the codec device's current
+        stream waits for it, so the audio is read as any other tensor.  On
+        another card chunk N's codec overlaps chunk N+1's frames; on the
+        engine's own card the stream keeps the codec's kernels apart and the
+        next chunk's frames wait for it.
+
+        Single-stream engines only: the continuous batcher keeps the one
+        program (its admission writes the Mimi state beside the cache).  The
+        audio equals the unstaged chunk schedule's op for op."""
+        if self.batch != 1:
+            raise ValueError("staged codec supports batch_size=1 engines; the continuous "
+                             "batcher keeps the fused program")
+        if self.mesh is not None:
+            raise ValueError(f"staged codec on a mesh engine waits for {MESH_TODO}")
+        dev = torch.device(codec_device)
+        if dev.type != self.device.type:
+            raise ValueError(f"staged codec: codec device {dev} and engine device {self.device} "
+                             f"are of different types")
+        self._codec_device = dev
+        self._mimi_params_staged = _map(self.params["mimi"], lambda t: t.to(dev))
+        self._codec_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def segment_bucket(self, max_frames: int) -> int | None:
         """The smallest ``segment_buckets`` entry covering ``max_frames``
@@ -503,10 +704,15 @@ class Engine:
             raise ValueError("decode_segment decodes one lane (B = 1)")
         if not 0 < max_frames <= bucket:
             raise ValueError(f"decode_segment: max_frames {max_frames} outside (0, {bucket}]")
-        params = self.params["flow_lm"]
+        if self._codec_device is not None:
+            raise ValueError("decode_segment: a staged codec runs the chunk schedule "
+                             "(decode_frames)")
+        # on a mesh (dp 1 at B = 1): the one group's view, its layers split on tp
+        view = self._groups(state)[0]
+        params, mimi_params = self._views[0]["flow_lm"], self._views[0]["mimi"]
         steps = gen.lsd_decode_steps
         table = flow_mlp.time_embedding_table(params["flow"], steps)
-        kc, vc, pos, latent = state["kc"], state["vc"], state["pos"], state["latent"]
+        kc, vc, pos, latent = view["kc"], view["vc"], view["pos"], view["latent"]
         latents = torch.empty((bucket, 1, self.ldim), dtype=torch.float32, device=self.device)
         eos_step = torch.full((), -1, dtype=torch.int32, device=self.device)
         watch = _EosWatch(self.device, bucket, max_frames, frames_after_eos)
@@ -525,15 +731,15 @@ class Engine:
         self.frames_decoded += i
         self.flow_evals += i * steps
         lat_bct = flow_lm.denormalize(params, latents[:n_valid]).permute(1, 2, 0)  # [1, ldim, n]
-        mimi_state, pcm = state["mimi"], []
+        mimi_state, pcm = view["mimi"], []
         for g, k in self.segment_groups(bucket, n_valid):
-            audio, mimi_state = mimi.decode_step(self.params["mimi"], self.plans, mimi_state,
+            audio, mimi_state = mimi.decode_step(mimi_params, self.plans, mimi_state,
                                                  lat_bct[:, :, g:g + k])
             pcm.append(self._pcm16(audio))
         audio = (torch.cat(pcm, dim=1) if pcm
                  else torch.zeros((1, 0), dtype=self.wire_dtype, device=self.device))
         new_state = {"kc": kc, "vc": vc, "pos": pos, "latent": latent, "mimi": mimi_state}
-        return new_state, audio, n_valid, watch.eos_step
+        return self._join(state, [new_state]), audio, n_valid, watch.eos_step
 
     def chunk_schedule(self, max_frames: int, low_latency: bool = True) -> list[int]:
         """Decode chunk sizes covering ``max_frames`` (the tail may overshoot;

@@ -138,6 +138,8 @@ def quantize_model(model: TTSModel, bits: int = 8) -> TTSModel:
     clone.__dict__.update(model.__dict__)
     clone.params = qparams
     clone.engine = Engine(model.config, qparams, model.device, batch_size=model.engine.batch)
+    if model.engine._codec_device is not None:  # the source model's staged codec
+        clone.engine.enable_staged_codec(model.engine._codec_device)
     clone._rng = torch.Generator().set_state(model._rng.get_state())
     clone.is_quantized = True
     return clone

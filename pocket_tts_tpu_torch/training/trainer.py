@@ -155,6 +155,8 @@ def _adapted_clone(model, flow_lm: dict):
     clone.params = {**model.params, "flow_lm": flow_lm}
     clone.engine = Engine(model.config, {"flow_lm": flow_lm, "mimi": model.engine.params["mimi"]},
                           model.device, batch_size=model.engine.batch)
+    if model.engine._codec_device is not None:  # the source model's staged codec
+        clone.engine.enable_staged_codec(model.engine._codec_device)
     clone._rng = torch.Generator().set_state(model._rng.get_state())
     return clone
 

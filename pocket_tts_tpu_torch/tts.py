@@ -56,6 +56,17 @@ class VoiceState:
         return {"kc": self.kc, "vc": self.vc, "pos": self.pos}
 
 
+def codec_stage_device(device: torch.device) -> torch.device | None:
+    """Where ``POCKET_TTS_STAGE_CODEC=1`` stages a model's codec: the first
+    other CUDA device when the model is on a CUDA device and at least two
+    are visible (the JAX package's ``jax.devices()[1]``), else None."""
+    if os.environ.get("POCKET_TTS_STAGE_CODEC", "0") != "1" or device.type != "cuda":
+        return None
+    here = device.index or 0
+    return next((torch.device("cuda", i) for i in range(torch.cuda.device_count())
+                 if i != here), None)
+
+
 def _check_device(device) -> None:
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"TTSModel.load: device {str(device)!r} but no CUDA device is "
@@ -75,6 +86,12 @@ class TTSModel:
         self.params = params
         self.engine = Engine(cfg, params, device)
         self.device = self.engine.device
+        # the staged codec is opted into here, not in Engine: only the single
+        # stream routes state through reset_for_segment's placement; a
+        # ContinuousBatcher's engine (even at batch_size=1) never stages
+        stage = codec_stage_device(self.device)
+        if stage is not None:
+            self.engine.enable_staged_codec(stage)
         self.tokenizer = text_mod.load_tokenizer(None)
         # host generator: draws one seed per text segment, in segment order, for
         # that segment's device generator (segments may be enqueued interleaved)
@@ -504,7 +521,7 @@ class _SegmentRun:
         self.generator = torch.Generator(device=eng.device).manual_seed(seed)
         self.fused_bucket = None
         if (not low_latency and self.max_frames and eng._rcfg.segment_dispatch == "auto"
-                and math.isfinite(model.gen.eos_threshold)):
+                and eng._codec_device is None and math.isfinite(model.gen.eos_threshold)):
             self.fused_bucket = eng.segment_bucket(self.max_frames)
         if self.fused_bucket is not None:
             self._schedule = iter([self.fused_bucket])

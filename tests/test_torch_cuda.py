@@ -189,6 +189,79 @@ def test_batcher_matches_single_stream_on_cuda(cuda_device):
         assert abs(got - want).max() <= 1e-4
 
 
+def test_mesh_tp2_on_one_card_matches_single_device(cuda_device):
+    """tp = 2 over [cuda:0] * 2: the sharded code on one card (a cache shard
+    per rank, decode attention over each rank's heads, partial sums added
+    in rank order) against the single-device engine in float32 at B = 2,
+    prefill and two chunks at temp 0.5 from one generator.  Audio within 1
+    int16 LSB and latents within 1e-4 (tests/test_sharding.py:82-86);
+    decode_attention launches = frames x layers x dp x tp."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch import config as c
+    from pocket_tts_tpu_torch import weights
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+    from pocket_tts_tpu_torch.parallel.mesh import gather, make_mesh
+    from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _small_config(c.RuntimeConfig(compute_dtype="float32", max_seq=256))
+    params = weights.from_state_dict(weights.random_state_dict(cfg, 4), cfg)
+    outs = []
+    for mesh in (None, make_mesh(2, devices=[cuda_device] * 2)):
+        eng = Engine(cfg, params, None if mesh else cuda_device, batch_size=2, mesh=mesh)
+        st = eng.prefill_tokens(eng.new_state(), np.tile(np.arange(1, 7, dtype=np.int32),
+                                                         (2, 1)), 6)
+        gen, pcm = torch.Generator(device=cuda_device).manual_seed(0), []
+        da.decode_attention.launches = 0
+        for _ in range(2):
+            st, audio, _ = eng.decode_frames(st, 2, GenParams(temp=0.5), gen)
+            pcm.append(audio.cpu().numpy().astype(np.int64))
+        assert da.decode_attention.launches == 4 * 2 * (2 if mesh else 1)
+        outs.append((np.concatenate(pcm, 1), gather(st["latent"], "cpu").numpy()))
+    assert np.abs(outs[0][0] - outs[1][0]).max() <= 1
+    np.testing.assert_allclose(outs[1][1], outs[0][1], atol=1e-4, rtol=1e-4)
+
+
+def test_staged_codec_on_its_own_stream_is_bit_identical(cuda_device):
+    """The codec staged on a CUDA stream of its own on the engine's card:
+    generate and generate_stream (chunk schedule) bit for bit the unstaged
+    model's, its stream not the frames', and the audio of a public
+    ``decode_frames`` call read at once (no wait of the caller's) bit for bit
+    the unstaged engine's."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch import config as c
+    from pocket_tts_tpu_torch import weights
+    from pocket_tts_tpu_torch.runtime.engine import GenParams
+    from pocket_tts_tpu_torch.tts import TTSModel
+
+    cfg = _small_config(c.RuntimeConfig(compute_dtype="float32", segment_dispatch="chunked",
+                                        decode_chunks=(2, 4, 8)))
+    params = weights.from_state_dict(weights.random_state_dict(cfg, 5), cfg)
+    gen = GenParams(temp=0.0, eos_threshold=float("inf"))
+    plain = TTSModel(cfg, params, gen=gen, has_real_weights=False, device=cuda_device)
+    staged = TTSModel(cfg, params, gen=gen, has_real_weights=False, device=cuda_device)
+    staged.engine.enable_staged_codec(cuda_device)
+    text = "Staged codec on its own stream. A second sentence follows it."
+    for run in (lambda m: m.generate(text),
+                lambda m: np.concatenate(list(m.generate_stream(text)))):
+        want, got = run(plain), run(staged)
+        assert got.shape == want.shape and got.size > 0
+        np.testing.assert_array_equal(got, want)
+    eng = staged.engine
+    assert eng._codec_stream != torch.cuda.current_stream(cuda_device)
+    pcm = []
+    for e in (plain.engine, eng):
+        st = e.prefill_tokens(e.new_state(), np.array([[1, 2, 3]], np.int32), 3)
+        g, chunks = torch.Generator(device=cuda_device).manual_seed(0), []
+        for _ in range(3):
+            st, audio, _ = e.decode_frames(st, 4, GenParams(temp=0.5), g)
+            chunks.append(audio.cpu().numpy())
+        pcm.append(np.concatenate(chunks, 1))
+    np.testing.assert_array_equal(pcm[1], pcm[0])
+
+
 # -- qlinear: the weight-only int8 / int4 products ------------------------------
 
 # (M, N, K) of the decode frame at B = 1, 4, 16, 32: in_proj as [3E, E], ff1,

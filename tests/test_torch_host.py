@@ -215,6 +215,12 @@ assert _SegmentRun(fused, "Hi there.", fused.get_voice_state(), None,
 with utils.display_execution_time("fused generate", print_output=False) as t:
     wav = fused.generate("Hi there.")
 assert wav.size % 1920 == 0 and np.isfinite(wav).all() and t.elapsed_ms > 0
+from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+from pocket_tts_tpu_torch.runtime.engine import Engine
+mesh_eng = Engine(cfg, model.params, batch_size=2, mesh=make_mesh(2, devices=["cpu"] * 2))
+st = mesh_eng.prefill_tokens(mesh_eng.new_state(), np.ones((2, 3), np.int32), 3)
+_, pcm, _ = mesh_eng.decode_frames(st, 2, GenParams(temp=0.5), torch.Generator())
+assert mesh_eng.mesh.shape == {"dp": 1, "tp": 2} and pcm.shape == (2, 2 * 1920)
 loaded = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and m.split(".")[0] in ("jax", "pocket_tts_tpu"))
 assert not loaded, loaded
