@@ -174,6 +174,25 @@ result line):
    JSON line gains ``launches_mesh``, the counts of (c)'s counted run, and
    flow_blocks' and decode_attention's ``launches_mesh_dp2``, those of (b)'s
    dp 2 x tp 2 run.
+12. Mesh training: float32 (TF32 off) at full width on [card] x n.  (a) One
+   dp 2 x tp 2 step, full and LoRA (rank 8), on 4 pairs of unequal lengths,
+   against the one-device step with the same draws: the loss within
+   ``MESH_LOSS_RTOL``, ``grad_norm`` within ``MESH_NORM_RTOL``, each leaf's
+   clipped gradient within ``GRAD_TOL``, the params after the step within
+   ``MESH_PARAM_TOL`` (tests/test_training.py:338-345).  (b)
+   ``finetune(mesh=)`` against ``finetune()`` for ``MESH_TRAIN_STEPS``
+   steps, full and LoRA: the per-step losses within ``MESH_LOSS_RTOL``, ms
+   per step (median, synchronized) and peak GiB of each, the tuned trees'
+   gap, the clone a single-device model.  (c) (a) and (b) launched no hand
+   kernel.  (d) The adapter bank on an int8 tp 2 engine (f32 compute), B =
+   4, two adapters and the base, admitted with their rows: each lane against
+   the one-device bank within ``MESH_LSB`` / ``MESH_LATENT_TOL``; the
+   counted run (flow_blocks = frames x steps x dp, decode_attention = frames
+   x 6 x dp x tp, qlinear the shape rule's).  (e) The codec staged on a
+   stream of its own on a tp 2 B = 1 engine: ``generate`` bit for bit the
+   unstaged tp 2 engine's, the codec's kernels on their own stream.  Each
+   kernel's entry of the JSON line gains ``launches_mesh_adapters``, the
+   counts of (d).
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -2657,34 +2676,40 @@ def _train_guard(dev) -> None:
           "on the card")
 
 
-def _finetune_run(model, pairs, smi: str, **kw):
-    """One ``finetune`` on the card: (clone, per-step losses, ms per step,
-    peak GiB)."""
+def _finetune_run(model, pairs, smi: str, steps: int = TRAIN_STEPS, where: str = "train",
+                  **kw):
+    """One ``finetune`` on the card over all ``pairs`` as one batch: (clone,
+    per-step losses, ms per step, peak GiB, the peak's GiB above what was
+    allocated before the run)."""
     from pocket_tts_tpu_torch.training import finetune
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
     log = _StepLog()
     try:
         t0 = time.perf_counter()
-        tuned = finetune(model, pairs, steps=TRAIN_STEPS, batch_size=8, lr=1e-4, log_every=1,
-                         seed=0, **kw)
+        tuned = finetune(model, pairs, steps=steps, batch_size=len(pairs), lr=1e-4,
+                         log_every=1, seed=0, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         log.close()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    _require(len(log.records) == TRAIN_STEPS, f"train: {len(log.records)} logged steps")
+    _require(len(log.records) == steps, f"{where}: {len(log.records)} logged steps")
     losses = [args[2] for _, args in log.records]
-    _require(all(math.isfinite(v) for v in losses), f"train: losses {losses}")
+    _require(all(math.isfinite(v) for v in losses), f"{where}: losses {losses}")
     steps_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(log.records, log.records[1:])]
     ms = statistics.median(steps_ms)
     kind = f"LoRA rank {kw['lora_rank']}" if kw.get("lora_rank") else "full"
-    print(f"train [{smi}]: finetune ({kind}) 8 pairs of 2-6 s x {TRAIN_STEPS} steps, batch 8, "
-          f"full width: losses {', '.join(f'{v:.4f}' for v in losses)}; ms per step "
-          f"{ms:.1f} (median of {len(steps_ms)}, synchronized); peak {peak:.2f} GiB; "
-          f"{wall:.1f} s in all (data prep and the clone included)")
-    return tuned, losses, ms, peak
+    mesh = kw.get("mesh")
+    on = "one device" if mesh is None else f"dp {mesh.shape['dp']} x tp {mesh.shape['tp']}"
+    print(f"{where} [{smi}]: finetune ({kind}, {on}) {len(pairs)} pairs x {steps} steps, batch "
+          f"{len(pairs)}, full width: losses {', '.join(f'{v:.4f}' for v in losses)}; ms per "
+          f"step {ms:.1f} (median of {len(steps_ms)}, synchronized); peak {peak:.2f} GiB "
+          f"({peak - held:.2f} above the {held:.2f} allocated before); {wall:.1f} s in all "
+          f"(data prep and the clone included)")
+    return tuned, losses, ms, peak, peak - held
 
 
 def _generate_launches(m, text: str) -> tuple[int, dict]:
@@ -2715,7 +2740,7 @@ def _train_finetunes(model, tmp: Path, smi: str) -> dict:
 
     pairs = _train_pairs(model.sample_rate)
     out = {}
-    tuned, losses, ms, peak = _finetune_run(model, pairs, smi)
+    tuned, losses, ms, peak, _ = _finetune_run(model, pairs, smi)
     full = tmp / "full.safetensors"
     save_finetuned_params(tuned.params["flow_lm"], full)
     back = apply_adapted(model, full)
@@ -2734,7 +2759,7 @@ def _train_finetunes(model, tmp: Path, smi: str) -> dict:
     del tuned, back
 
     snapshot = {p: t.clone() for p, t in _flat(model.params["flow_lm"])}
-    tuned, losses, ms, peak = _finetune_run(model, pairs, smi, lora_rank=8)
+    tuned, losses, ms, peak, _ = _finetune_run(model, pairs, smi, lora_rank=8)
     _require(all(torch.equal(snapshot[p], t) for p, t in _flat(model.params["flow_lm"])),
              "train: LoRA fine-tune changed the base params")
     factors, rank, alpha = tuned._lora
@@ -3298,6 +3323,19 @@ def _mesh_narrow(model, dev, smi: str) -> dict:
     return out
 
 
+def _staged_streams(m, where: str) -> tuple[dict, str, dict]:
+    """One profiled short ``generate`` of a staged model: (kernel names by
+    stream, the one stream of the frames' kernels, the codec's streams and
+    their kernels); fails unless the codec's kernels ran apart."""
+    by_stream = _stream_kernels(lambda: m.generate(NARROW_TEXT))
+    ar = {s for s, names in by_stream.items()
+          if any("flow_chain" in x or "decode_attention" in x for x in names)}
+    codec = {s: names for s, names in by_stream.items() if s not in ar}
+    _require(len(ar) == 1 and codec, f"{where}: frame kernels on streams {ar}, others on "
+                                     f"{sorted(codec)}")
+    return by_stream, ar.pop(), codec
+
+
 def _stream_kernels(run) -> dict:
     """Kernel names by CUDA stream over one torch.profiler window of run()."""
     trace = Path(tempfile.mkdtemp()) / "trace.json"
@@ -3337,17 +3375,12 @@ def _mesh_staged(model, dev, smi: str) -> dict:
     _require(lsb is not None and lsb <= 1, f"mesh: staged vs fused generate: {lsb} LSB")
     s1, s2 = (np.concatenate(list(m.generate_stream(STAGED_TEXT))) for m in (plain, staged))
     _require(np.array_equal(s1, s2), "mesh: staged generate_stream differs from unstaged")
-    by_stream = _stream_kernels(lambda: staged.generate(NARROW_TEXT))
-    ar = {s for s, names in by_stream.items()
-          if any("flow_chain" in x or "decode_attention" in x for x in names)}
-    codec = {s: names for s, names in by_stream.items() if s not in ar}
-    _require(len(ar) == 1 and codec, f"mesh: staged profile: frame kernels on streams {ar}, "
-                                      f"others on {sorted(codec)}")
+    by_stream, ar, codec = _staged_streams(staged, "mesh: staged profile")
     top = collections.Counter(x for names in codec.values() for x in names).most_common(3)
     print(f"mesh: staged codec on one card [{smi}]: generate and generate_stream bit-identical "
           f"to unstaged (chunk schedule); generate within {lsb} int16 LSB of the fused segment; "
-          f"profile of a short generate: the frames' kernels on stream {sorted(ar)[0]} "
-          f"({len(by_stream[sorted(ar)[0]])} launches), the codec's on stream(s) "
+          f"profile of a short generate: the frames' kernels on stream {ar} "
+          f"({len(by_stream[ar])} launches), the codec's on stream(s) "
           f"{sorted(codec)} ({sum(len(v) for v in codec.values())} launches; top "
           f"{', '.join(f'{x} x{k}' for x, k in top)})")
     # the device's side of both: ms and launches per frame, busy share
@@ -3373,6 +3406,281 @@ def phase_mesh(model, dev, smi: str) -> dict:
     out = {"f32": _mesh_f32(model, dev, smi), "narrow": _mesh_narrow(model, dev, smi),
            "staged": _mesh_staged(model, dev, smi)}
     print(f"mesh: phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# -- phase 12: training on the mesh; the bank and the staged codec on a mesh engine -----
+
+# a sharded step against the one-device step (tests/test_training.py:338-345)
+MESH_LOSS_RTOL = 2e-4
+MESH_PARAM_TOL = (2e-4, 2e-3)  # atol, rtol: params after a step
+MESH_NORM_RTOL = 1e-5  # grad_norm: each logical element counted once
+MESH_TRAIN_STEPS = 4
+MESH_BANK_LANES = ("one", "two", None, "one")
+
+
+def _hand_launches() -> dict:
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+
+    return {"flow_blocks": fb.flow_blocks.launches, "qlinear": ql.qlinear.launches,
+            "decode_attention": da.decode_attention.launches}
+
+
+def _zero_launches() -> None:
+    from pocket_tts_tpu_torch.kernels import flow_blocks as fb
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+
+    fb.flow_blocks.launches = ql.qlinear.launches = 0
+    _attn_reset()
+
+
+def _master_grads(params) -> dict:
+    """path -> the whole (clipped) gradient of a leaf: a placed leaf's
+    masters' gradients joined on tp."""
+    from pocket_tts_tpu_torch.parallel.mesh import Trainable
+
+    out = {}
+    for path, leaf in _flat(params):
+        if isinstance(leaf, Trainable):
+            grads = [m.grad for m in leaf.blocks[0]]
+            out[path] = (torch.cat(grads, dim=leaf.spec.index("tp")) if leaf.tp_split
+                         else grads[0])
+        else:
+            out[path] = leaf.grad
+    return out
+
+
+def _mesh_train_step(model, dev, smi: str) -> dict:
+    """(a) one dp 2 x tp 2 step, full and LoRA, on 4 pairs of unequal lengths
+    against the one-device step, float32, the same draws."""
+    from pocket_tts_tpu_torch import training
+    from pocket_tts_tpu_torch.parallel import mesh as pm
+    from pocket_tts_tpu_torch.training.loss import sample_draws
+    from pocket_tts_tpu_torch.training.trainer import _map
+
+    pairs = _train_pairs(model.sample_rate)[:4]
+    batch = training.make_batch(model, pairs)
+    b, tf, ldim = batch["latents"].shape
+    draws = sample_draws(torch.Generator().manual_seed(5), b, tf, ldim, torch.device("cpu"))
+    flow_lm = _map(model.params["flow_lm"],
+                   lambda t: t.detach().to(dev, torch.float32, copy=True))
+    mesh = pm.make_mesh(4, tp=2, devices=[dev] * 4)
+    opt = training.make_optimizer(1e-4)
+    out = {}
+    for kind in ("full", "lora"):
+        runs = []
+        for placed in (False, True):
+            mb = training.shard_batch(batch, mesh) if placed else batch
+            if kind == "full":
+                p = pm.shard_trainable(flow_lm, mesh) if placed else _map(flow_lm, torch.clone)
+                p, _, m = training.make_train_step(model.config, opt)(p, opt.init(p), mb,
+                                                                      draws=draws)
+            else:
+                base = pm.shard_params(flow_lm, mesh) if placed else flow_lm
+                p = training.init_lora(flow_lm, 8, seed=0)
+                p = pm.shard_trainable(p, mesh) if placed else p
+                step = training.make_lora_train_step(model.config, opt, alpha=8.0, rank=8)
+                p, _, m = step(p, opt.init(p), base, mb, draws=draws)
+            grads = _master_grads(p)
+            runs.append(({k: v.item() for k, v in m.items()},
+                         {k: v.detach() for k, v in _flat(pm.gather(p, dev))}, grads))
+        (m1, p1, g1), (m2, p2, g2) = runs
+        loss_err = abs(m2["loss"] - m1["loss"]) / abs(m1["loss"])
+        norm_err = abs(m2["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+        metric_err = max(abs(m2[k] - v) / max(1.0, abs(v)) for k, v in m1.items())
+        _require(sorted(g1) == sorted(g2) == sorted(p1) == sorted(p2),
+                 f"mesh train {kind}: leaves differ")
+        grad_err = max(float((g2[k] - g).abs().max()) / max(1.0, float(g.abs().max()))
+                       for k, g in g1.items())
+        atol, rtol = MESH_PARAM_TOL
+        over = max(float(((p2[k] - v).abs() - (atol + rtol * v.abs())).max())
+                   for k, v in p1.items())
+        moved = kind == "lora" or any(not torch.equal(p1[k], v) for k, v in _flat(flow_lm))
+        _require(loss_err <= MESH_LOSS_RTOL, f"mesh train {kind}: loss rel err {loss_err}")
+        _require(norm_err <= MESH_NORM_RTOL, f"mesh train {kind}: grad_norm rel err {norm_err}")
+        _require(grad_err <= GRAD_TOL, f"mesh train {kind}: gradient err {grad_err}")
+        _require(over <= 0, f"mesh train {kind}: params after the step over the bound by {over}")
+        _require(moved, "mesh train full: the step moved nothing")
+        print(f"mesh train [{smi}]: one {kind} step at full width, f32 (TF32 off), B={b} "
+              f"(4 pairs of 2.0-3.7 s, latent_valid {batch['latent_valid'].tolist()}), dp 2 x "
+              f"tp 2 over [{dev}] x 4 vs one device, the same draws: loss rel err "
+              f"{loss_err:.2e} (bound {MESH_LOSS_RTOL}), metrics max rel err {metric_err:.2e}, "
+              f"grad_norm rel err {norm_err:.2e} (bound {MESH_NORM_RTOL}), {len(g1)} leaves' "
+              f"clipped gradients err / max(1, max|g|) {grad_err:.2e} (bound {GRAD_TOL}), params "
+              f"after the step within atol {atol} + rtol {rtol} (worst margin {over:.2e})")
+        out[kind] = {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+                     "grad_err": grad_err, "metric_rel_err": metric_err}
+    del flow_lm
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_finetunes(model, dev, smi: str) -> dict:
+    """(b) ``finetune(mesh=)`` against ``finetune()`` for MESH_TRAIN_STEPS
+    steps, full and LoRA: the per-step losses, ms per step, peak GiB; the
+    clone is a single-device model."""
+    from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+
+    pairs = _train_pairs(model.sample_rate)[:4]
+    mesh = make_mesh(4, tp=2, devices=[dev] * 4)
+    out = {}
+    for kind, kw in (("full", {}), ("lora", {"lora_rank": 8})):
+        runs = {}
+        for where, m in (("one", None), ("dp2tp2", mesh)):
+            tuned, losses, ms, peak, added = _finetune_run(
+                model, pairs, smi, steps=MESH_TRAIN_STEPS, where="mesh train", mesh=m, **kw)
+            _require(tuned.engine.mesh is None and tuned.device == model.device,
+                     f"mesh train {kind}: the clone is not a single-device model")
+            runs[where] = {"losses": losses, "ms_per_step": ms, "peak_gib": peak,
+                           "added_gib": added, "flow_lm": dict(_flat(tuned.params["flow_lm"]))}
+            del tuned
+        one, sh = runs["one"], runs["dp2tp2"]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(sh["losses"], one["losses"]))
+        _require(worst <= MESH_LOSS_RTOL, f"mesh train {kind}: finetune losses {sh['losses']} "
+                                          f"vs {one['losses']}")
+        atol, rtol = MESH_PARAM_TOL
+        diff = max(float((sh["flow_lm"][k] - v).abs().max()) for k, v in one["flow_lm"].items())
+        outside = sum(int(((sh["flow_lm"][k] - v).abs() > atol + rtol * v.abs()).sum())
+                      for k, v in one["flow_lm"].items())
+        total = sum(v.numel() for v in one["flow_lm"].values())
+        print(f"mesh train [{smi}]: finetune {kind} x {MESH_TRAIN_STEPS} steps, dp 2 x tp 2 vs "
+              f"one device: losses max rel err {worst:.2e} (bound {MESH_LOSS_RTOL}); ms per step "
+              f"{sh['ms_per_step']:.1f} vs {one['ms_per_step']:.1f}; peak {sh['peak_gib']:.2f} "
+              f"vs {one['peak_gib']:.2f} GiB ({sh['added_gib']:.2f} vs {one['added_gib']:.2f} "
+              f"above what was held before); tuned FlowLM max |diff| {diff:.3e}, {outside} of "
+              f"{total} elements past atol {atol} + rtol {rtol} (Adam's first steps divide "
+              f"each gradient by its own size)")
+        out[kind] = {"loss_rel_err": worst, "tuned_max_diff": diff, "tuned_outside": outside,
+                     **{f"{k}_{w}": runs[w][k] for w in runs
+                        for k in ("ms_per_step", "peak_gib", "added_gib")}}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_bank(model, dev, paths: dict, smi: str) -> dict:
+    """(d) the bank on an int8 tp 2 engine (float32 compute), B = 4: four
+    lanes (adapters one / two / base / one) admitted with their rows, 2
+    chunks at temp 0.5, against the one-device bank engine; the counted run
+    of the mesh path."""
+    from pocket_tts_tpu_torch.kernels.qlinear import MAX_ROWS
+    from pocket_tts_tpu_torch.parallel import mesh as pm
+    from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams, _bucket
+    from pocket_tts_tpu_torch.runtime.quantize import quantize_params
+    from pocket_tts_tpu_torch.training.lora import build_adapter_bank
+
+    cfg = dataclasses.replace(model.config, runtime=dataclasses.replace(
+        model.config.runtime, compute_dtype="float32"))
+    qparams = quantize_params(model.params, 8)
+    bank = build_adapter_bank({k: str(v) for k, v in paths.items()})
+    rows = np.stack([bank.row(n) for n in MESH_BANK_LANES])
+    texts = [_mesh_tokens(model, t, 1) for t in ADAPTER_TEXTS + (MESH_TEXTS[0],)]
+    mesh = pm.make_mesh(2, devices=[dev] * 2)
+
+    def run(eng):
+        eng.set_adapter_bank(bank)
+        empty = {k: v for k, v in Engine(cfg, qparams, dev).new_state(1).items()
+                 if k in ("kc", "vc", "pos")}
+        st = eng.new_state()
+        for i, (tok, n) in enumerate(texts):
+            st = eng.admit_prefill_slot(st, i, empty, eng.pad_token_row(tok), n,
+                                        lora_row=rows[i])
+        gen, pcm = torch.Generator(device=dev).manual_seed(16), []
+        for _ in range(2):
+            st, audio, _ = eng.decode_frames(st, MESH_FRAMES, GenParams(
+                temp=0.5, eos_threshold=float("inf")), gen, lora_w=rows)
+            pcm.append(audio.cpu().numpy().astype(np.int64))
+        return np.concatenate(pcm, 1), pm.gather(st["latent"], "cpu").float().numpy()
+
+    ref = run(Engine(cfg, qparams, dev, batch_size=4))
+    eng = Engine(cfg, qparams, batch_size=4, mesh=mesh)
+    torch.cuda.synchronize()
+    _zero_launches()
+    got = run(eng)
+    torch.cuda.synchronize()
+    launches = _hand_launches()
+    dp, tp, frames = mesh.shape["dp"], mesh.shape["tp"], 2 * MESH_FRAMES
+    layers, steps = cfg.flow_lm.transformer.num_layers, GenParams().lsd_decode_steps
+    view = eng._views[0]
+    backbone = _mesh_qcount(view, 0, 1, 0, 0, 1)  # one prefill's backbone products
+    admit = sum(backbone for tok, _ in texts
+                if _bucket(tok.shape[1], cfg.runtime.text_buckets) <= MAX_ROWS)
+    want = {"flow_blocks": frames * steps * dp, "decode_attention": frames * layers * dp * tp,
+            "qlinear": admit + _mesh_qcount(view, steps, 4 // dp, frames, 2,
+                                            MAX_ROWS + 1)}
+    _require(launches == want, f"mesh bank: launches {launches}, the rules give {want}")
+    lanes = [_mesh_gap(got[0][i], ref[0][i], got[1][i], ref[1][i]) for i in range(4)]
+    atol, rtol = MESH_LATENT_TOL
+    _require(max(lsb for lsb, _ in lanes) <= MESH_LSB, f"mesh bank: lanes {lanes} LSB")
+    _require(bool(np.all(np.abs(got[1] - ref[1]) <= atol + rtol * np.abs(ref[1]))),
+             f"mesh bank: latents {[dl for _, dl in lanes]}")
+    apart = int(np.abs(ref[0][0] - ref[0][2]).max())
+    _require(apart > 1, "mesh bank: adapter one and the base give the same audio")
+    print(f"mesh bank [{smi}]: int8 engine (f32 compute) at tp 2 over [{dev}] x 2, B 4 (one / two "
+          f"/ base / one), admitted with their rows, 2 chunks of {MESH_FRAMES} frames at temp 0.5 "
+          f"vs the one-device bank: lanes within {[lsb for lsb, _ in lanes]} int16 LSB (bound "
+          f"{MESH_LSB}), latents max |diff| {max(dl for _, dl in lanes):.3e} (atol {atol}, rtol "
+          f"{rtol}); adapter one {apart} LSB from the base; launches flow_blocks "
+          f"{launches['flow_blocks']} = frames x steps x dp, decode_attention "
+          f"{launches['decode_attention']} = frames x {layers} x dp x tp, qlinear "
+          f"{launches['qlinear']} = the shape rule's (each rank its shards)")
+    del eng, qparams
+    torch.cuda.empty_cache()
+    return {"launches": launches, "lanes": lanes, "apart_lsb": apart}
+
+
+def _mesh_train_staged(model, dev, smi: str) -> dict:
+    """(e) the codec staged on a stream of its own on a tp 2 engine, B = 1:
+    generate bit for bit the unstaged tp 2 engine's chunk schedule; the
+    codec's kernels on a stream of their own."""
+    from pocket_tts_tpu_torch import TTSModel
+    from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+    from pocket_tts_tpu_torch.runtime.engine import Engine
+
+    gen = dataclasses.replace(model.gen, temp=0.7, eos_threshold=SEGMENT_UNREACHABLE)
+    cfg = dataclasses.replace(model.config, runtime=dataclasses.replace(
+        model.config.runtime, segment_dispatch="chunked"))
+    mesh = make_mesh(2, devices=[dev] * 2)
+    models = []
+    for staged in (False, True):
+        m = TTSModel(cfg, model.params, gen=gen, has_real_weights=False, device=dev)
+        m.engine = Engine(cfg, model.params, mesh=mesh)
+        if staged:
+            m.engine.enable_staged_codec(dev)
+        models.append(m)
+    plain, staged = models
+    a, b = plain.generate(STAGED_TEXT), staged.generate(STAGED_TEXT)
+    _require(a.size > 0 and np.array_equal(a, b), "mesh staged: tp 2 staged generate differs "
+                                                  "from unstaged")
+    _, ar, codec = _staged_streams(staged, "mesh staged")
+    n_codec = sum(len(v) for v in codec.values())
+    print(f"mesh staged [{smi}]: tp 2 engine over [{dev}] x 2, B 1, the codec staged on a "
+          f"stream of its own: generate ({a.size // model.frame_size} frames, chunk schedule) "
+          f"bit for bit the unstaged tp 2 engine's; profile of a short generate: the frames' "
+          f"kernels on stream {ar}, the codec's {n_codec} on {sorted(codec)}")
+    del models, plain, staged
+    torch.cuda.empty_cache()
+    return {"codec_launches": n_codec}
+
+
+def phase_mesh_train(model, dev, smi: str) -> dict:
+    """Phase 12: training on the mesh, then the bank and the staged codec on
+    mesh engines, on this card."""
+    t0 = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    torch.cuda.synchronize()
+    _zero_launches()
+    out = {"step": _mesh_train_step(model, dev, smi), "finetune": _mesh_finetunes(model, dev, smi)}
+    torch.cuda.synchronize()
+    launches = _hand_launches()
+    _require(not any(launches.values()), f"mesh train: hand kernels launched {launches}")
+    print(f"mesh train: (a) and (b) launched no hand kernel ({launches}): the loss runs the "
+          f"plain flow chain under autograd, teacher forcing T > 1, float weights")
+    out["bank"] = _mesh_bank(model, dev, _random_adapters(model, Path(tmp_dir.name)), smi)
+    out["staged"] = _mesh_train_staged(model, dev, smi)
+    tmp_dir.cleanup()
+    print(f"mesh train: phase took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3463,6 +3771,7 @@ def main() -> None:
     train = phase_train(model, q8fp8, smi)
     mesh = phase_mesh(model, dev, smi)
     mesh_launches, mesh_dp2 = mesh["narrow"]["launches"], mesh["f32"]["dp2tp2"]["launches"]
+    mesh_bank = phase_mesh_train(model, dev, smi)["bank"]["launches"]
     per_b = {key: {str(b): kern[b][key] for b in TIMED_BATCHES}
              for key in ("device_us_cold", "device_us_warm", "bound_us", "roofline_share",
                          "graph_plain_us", "graph_plain_us_warm")}
@@ -3480,6 +3789,7 @@ def main() -> None:
         "launches_adapters_quantized": train["bank_quantized"]["flow_launches"],
         "launches_mesh": mesh_launches["flow_blocks"],
         "launches_mesh_dp2": mesh_dp2["flow_blocks"],
+        "launches_mesh_adapters": mesh_bank["flow_blocks"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern[1]["ms"], "plain_ms": kern[1]["plain_ms"],
         "bound_ms": kern[1]["bound_us"] / 1e3, "bound_by": kern[1]["bound_by"],
@@ -3487,7 +3797,8 @@ def main() -> None:
         "ms_b4": kern[4]["ms"], "plain_ms_b4": kern[4]["plain_ms"],
         "ms_b16": kern[16]["ms"], "plain_ms_b16": kern[16]["plain_ms"],
         **per_b,
-    }, {**_qlinear_entry(narrow, serve, train), "launches_mesh": mesh_launches["qlinear"]},
+    }, {**_qlinear_entry(narrow, serve, train), "launches_mesh": mesh_launches["qlinear"],
+        "launches_mesh_adapters": mesh_bank["qlinear"]},
         {**_decode_entry(dec, {
         "main": attn_main, "voice": attn_voice, "batch": batch["attn"],
         "narrow": narrow["generate"]["int8+fp8"]["attn"], "fp8_voice": narrow["voice"]["attn"],
@@ -3495,7 +3806,8 @@ def main() -> None:
         "train_generate": train["full"]["attn"]},
         {"b1": profile_b1, "b16": batch["profile"]}, segment["attn"]),
          "launches_mesh": mesh_launches["decode_attention"],
-         "launches_mesh_dp2": mesh_dp2["decode_attention"]}]}))
+         "launches_mesh_dp2": mesh_dp2["decode_attention"],
+         "launches_mesh_adapters": mesh_bank["decode_attention"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

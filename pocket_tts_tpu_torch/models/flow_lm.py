@@ -73,7 +73,7 @@ def embed_text(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def prefill(params: dict, cfg: Config, k_cache: torch.Tensor, v_cache: torch.Tensor,
             pos: torch.Tensor, embeddings: torch.Tensor, t_valid: torch.Tensor,
-            lora: dict | None = None, lora_w: torch.Tensor | None = None):
+            lora: dict | list | None = None, lora_w: torch.Tensor | None = None):
     """Feed conditioning embeddings [B, T, d_model] through the backbone,
     filling the KV cache in place.  Returns (k_cache, v_cache, new_pos).
     ``lora`` / ``lora_w``: the per-slot adapter bank
@@ -91,7 +91,7 @@ def prefill(params: dict, cfg: Config, k_cache: torch.Tensor, v_cache: torch.Ten
 def step(params: dict, cfg: Config, k_cache: torch.Tensor, v_cache: torch.Tensor,
          pos: torch.Tensor, latent: torch.Tensor, noise: torch.Tensor,
          t_emb_table: torch.Tensor, lsd_decode_steps: int,
-         lsd_vec: torch.Tensor | None = None, lora: dict | None = None,
+         lsd_vec: torch.Tensor | None = None, lora: dict | list | None = None,
          lora_w: torch.Tensor | None = None):
     """One autoregressive frame.  ``latent`` [B, ldim] is the previous latent
     (``bos_emb`` on the first step), ``noise`` [B, ldim] pre-sampled.

@@ -7,7 +7,8 @@ dict of tensors stacked on a leading layer axis; ``in_proj`` is ``[L, 3, E, E]``
 A weight may be a ``QTensor``: its linears run through ``kernels.qlinear``.
 ``cache_forward`` optionally mixes per-slot LoRA deltas into the four
 backbone products (``lora`` / ``lora_w``, the adapter bank of
-``runtime.engine.Engine.set_adapter_bank``), beside the base product.
+``runtime.engine.Engine.set_adapter_bank``), beside the base product, each
+tp rank its cut of the factors.
 
 * ``cache_forward`` — causal over a dense KV cache (FlowLM backbone).  The
   cache is ``[L, B, S, H, D]`` and is updated in place.
@@ -71,12 +72,16 @@ def _lora_pair(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, w: torch.Tenso
     return torch.einsum(f"btn{sub}r,n{sub}or->bt{sub}o", u, b.float())
 
 
-def _add_lora(y: torch.Tensor, x: torch.Tensor, lora: dict | None, lora_w, name: str,
-              qkv: bool = False) -> torch.Tensor:
-    """``y`` plus the ``name`` target's delta on ``x`` when the bank has one."""
-    if lora is None or name not in lora:
+def _add_lora(y: torch.Tensor, x: torch.Tensor, lora: list | None, r: int, lora_w,
+              name: str, qkv: bool = False) -> torch.Tensor:
+    """``y`` plus the ``name`` target's delta on ``x`` when the bank has one:
+    rank ``r``'s factors (``lora``: one dict per rank, rank r's cut of a
+    product split on tp; :meth:`Engine.set_adapter_bank`), the rows
+    ``lora_w`` on ``x``'s device."""
+    if lora is None or name not in lora[r]:
         return y
-    delta = _lora_pair(x, lora[name]["a"], lora[name]["b"], lora_w, qkv)
+    f = lora[r][name]
+    delta = _lora_pair(x, f["a"], f["b"], lora_w.to(x.device, non_blocking=True), qkv)
     return y + delta.reshape(y.shape).to(y.dtype)
 
 
@@ -97,13 +102,13 @@ def _qkv(p_layer: dict, x: torch.Tensor, n_heads: int, cos, sin, lora=None,
     d = e // n_heads
     xn = layer_norm(x, p_layer["norm1_w"], p_layer["norm1_b"], eps=1e-5)
     projs = []
-    for w in _parts(p_layer["in_proj"]):
+    for r, w in enumerate(_parts(p_layer["in_proj"])):
         xr = xn.to(w.device, non_blocking=True)
         if isinstance(w, QTensor):
             proj = qlinear(xr, w)  # one [3e, E] product
         else:
             proj = torch.einsum("bte,kpe->btkp", xr.to(w.dtype), w)
-        projs.append(_add_lora(proj, xr, lora, lora_w, "in_proj", qkv=True))
+        projs.append(_add_lora(proj, xr, lora, r, lora_w, "in_proj", qkv=True))
     if n_heads % len(projs):
         projs = [torch.cat([p.reshape(b, t, 3, -1).to(x.device, non_blocking=True)
                             for p in projs], dim=-1)]
@@ -128,17 +133,17 @@ def _post_attn(p_layer: dict, x: torch.Tensor, attn: list, lora=None,
     if len(flat) < len(w_out):  # heads attended whole on the lead: split for out_proj
         flat = [a.to(w.device, non_blocking=True).contiguous()
                 for a, w in zip(flat[0].chunk(len(w_out), dim=-1), w_out)]
-    update = reduce_sum([_add_lora(linear(a, w), a, lora, lora_w, "out_proj")
-                         for a, w in zip(flat, w_out)], x.device)
+    update = reduce_sum([_add_lora(linear(a, w), a, lora, r, lora_w, "out_proj")
+                         for r, (a, w) in enumerate(zip(flat, w_out))], x.device)
     if "ls1" in p_layer:
         update = update * p_layer["ls1"].to(update.dtype)
     x = x + update
     xn = layer_norm(x, p_layer["norm2_w"], p_layer["norm2_b"], eps=1e-5)
     parts = []
-    for w1, w2 in zip(_parts(p_layer["ff1"]), _parts(p_layer["ff2"])):
+    for r, (w1, w2) in enumerate(zip(_parts(p_layer["ff1"]), _parts(p_layer["ff2"]))):
         xr = xn.to(w1.device, non_blocking=True)
-        h = F.gelu(_add_lora(linear(xr, w1), xr, lora, lora_w, "ff1"), approximate="none")
-        parts.append(_add_lora(linear(h, w2), h, lora, lora_w, "ff2"))
+        h = F.gelu(_add_lora(linear(xr, w1), xr, lora, r, lora_w, "ff1"), approximate="none")
+        parts.append(_add_lora(linear(h, w2), h, lora, r, lora_w, "ff2"))
     update = reduce_sum(parts, x.device)
     if "ls2" in p_layer:
         update = update * p_layer["ls2"].to(update.dtype)
@@ -147,22 +152,21 @@ def _post_attn(p_layer: dict, x: torch.Tensor, attn: list, lora=None,
 
 def cache_forward(params: dict, n_heads: int, k_cache: torch.Tensor, v_cache: torch.Tensor,
                   pos: torch.Tensor, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                  t_valid: torch.Tensor | None = None, lora: dict | None = None,
+                  t_valid: torch.Tensor | None = None, lora: dict | list | None = None,
                   lora_w: torch.Tensor | None = None):
     """Dense-cache causal transformer step over ``x`` [B, T, E] at positions
     ``pos + i``.  ``k_cache``/``v_cache`` [L, B, S, H, D] (or a view of their
     first S positions; on a mesh ``Shards`` of their heads) are written in
     place; returns (y, k_cache, v_cache).
     ``t_valid`` [B]: prefill widths (positions past them are not written).
-    ``lora`` ({target: {"a": [L, N, (3,) r, in], "b": [L, N, (3,) out, r]}})
-    and ``lora_w`` [B, N]: per-slot adapter deltas (:func:`_lora_pair`), on
-    a single device only."""
-    if lora is not None and any(isinstance(w, Shards) for w in params.values()):
-        raise ValueError("cache_forward: per-slot LoRA does not run on a mesh")
+    ``lora`` ({target: {"a": [L, N, (3,) r, in], "b": [L, N, (3,) out, r]}},
+    or on a mesh a list of them, one per tp rank, each with its rank's cut)
+    and ``lora_w`` [B, N]: per-slot adapter deltas (:func:`_lora_pair`)."""
+    ranks = [lora] if isinstance(lora, dict) else lora
     for i in range(k_cache.shape[0]):
         p_layer = _layer(params, i)
-        lo = None if lora is None else {k: {"a": f["a"][i], "b": f["b"][i]}
-                                        for k, f in lora.items()}
+        lo = None if ranks is None else [{k: {"a": f["a"][i], "b": f["b"][i]}
+                                          for k, f in rank.items()} for rank in ranks]
         attn = []
         for r, (q, k, v) in enumerate(_qkv(p_layer, x, n_heads, cos, sin, lo, lora_w)):
             kc, vc = _rank(k_cache[i], r), _rank(v_cache[i], r)

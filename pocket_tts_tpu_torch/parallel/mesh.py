@@ -212,6 +212,25 @@ class Sharded:
         return Shards(parts, self.spec.index("tp")) if self.tp_split else parts[0]
 
 
+class Trainable(Sharded):
+    """A trainable parameter leaf on a mesh (:func:`shard_trainable`): only
+    group 0's blocks, the float32 masters, each its own leaf tensor (one per
+    tp rank on that rank's device when split on tp, else one on the lead
+    device).  The optimizer updates the masters; :func:`replicas` builds
+    every other group's copies from them."""
+
+    def replicas(self) -> Sharded:
+        """The leaf with every dp group: group 0 the masters, group g's block
+        r ``master_r.to(devices[g, r])``, a differentiable copy (the master
+        itself on a repeated device), so backward adds each replica's
+        gradient into its master: the gradient all-reduce of data
+        parallelism."""
+        devs = self.mesh.devices
+        rows = [self.blocks[0]] + [[m.to(devs[g, r]) for r, m in enumerate(self.blocks[0])]
+                                   for g in range(1, self.mesh.shape["dp"])]
+        return Sharded(self.spec, rows, self.mesh)
+
+
 def _own(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A contiguous copy of ``t`` on ``device`` in an allocation of its own
     (an fp8 tensor copied as its bytes)."""
@@ -285,6 +304,55 @@ def shard_params(params: dict, mesh: Mesh) -> dict:
         return leaf
 
     return map_with_path(params, put)
+
+
+def shard_trainable(params: dict, mesh: Mesh) -> dict:
+    """Place a float parameter tree for training by
+    :func:`param_sharding_rules`: each leaf a :class:`Trainable` holding one
+    float32 master per logical block (a tp-split leaf one per rank, on that
+    rank's device in group 0; a replicated leaf one, on the lead device), a
+    fresh allocation each.  The optimizer's leaves are :func:`masters`, so a
+    replicated leaf counts once in the global-norm clip and cannot drift
+    apart between devices.  A QTensor raises (quantized weights do not
+    train)."""
+    first = Mesh(mesh.devices[:1])
+
+    def put(name, leaf):
+        if isinstance(leaf, QTensor):
+            raise ValueError(f"shard_trainable: {name} is quantized")
+        spec = _fit_spec(param_sharding_rules(name), leaf.shape, mesh)
+        placed = _place(leaf.detach().float(), spec, first, every_device=False)
+        return Trainable(spec, placed.blocks, mesh)
+
+    return map_with_path(params, put)
+
+
+def replicas(tree):
+    """``tree`` with each :class:`Trainable` leaf replaced by its
+    :meth:`Trainable.replicas` (every group's copies, built under autograd
+    from the masters); other leaves as they are."""
+    return map_with_path(tree, lambda _, leaf: leaf.replicas()
+                         if isinstance(leaf, Trainable) else leaf)
+
+
+def masters(tree) -> list[torch.Tensor]:
+    """The tensors an optimizer updates: each :class:`Trainable` leaf's
+    masters, each unplaced tensor itself, in tree order.  Any other placed
+    leaf raises: its replicas would count in the norm once per device."""
+    out = []
+
+    def visit(name, leaf):
+        if isinstance(leaf, Trainable):
+            out.extend(leaf.blocks[0])
+        elif isinstance(leaf, Sharded):
+            raise ValueError(f"masters: {name} is placed by shard_params; place trainable "
+                             "params with shard_trainable")
+        else:
+            out.append(leaf)
+        return leaf
+
+    map_with_path(tree, visit)
+    return out
 
 
 def shard_state(state: dict, mesh: Mesh) -> dict:

@@ -23,7 +23,8 @@
   (``prefill_conditioning``), unpadded.
 * Per-slot LoRA (``set_adapter_bank``): ``decode_frames(lora_w=)`` and
   ``admit_prefill_slot(lora_row=)`` mix each lane's adapter delta into the
-  backbone products; without them the plain path runs.
+  backbone products (on a mesh each tp rank its cut of the factors);
+  without them the plain path runs.
 * Narrow storage: int8 / int4 ``QTensor`` weights (scales cast to each
   leaf's dtype, ``q`` never), an fp8 KV cache (``kv_dtype``), and the mu-law
   wire (``transport_format="mulaw"``: encoded on the device, decoded on the
@@ -34,12 +35,15 @@
   loop enqueues every group's launches in turn.
 * The staged codec (``enable_staged_codec``): the Mimi decode of each chunk
   runs on another device, or on a CUDA stream of its own on the engine's
-  device, chained to the frames by an event and one copy of the latents.
+  device, chained to the frames by an event and one copy of the latents;
+  on a mesh engine (B = 1) the frames run on the mesh and the codec on its
+  own mesh of the engine's tp ranks, all on the codec's device.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 
@@ -52,7 +56,7 @@ from pocket_tts_tpu_torch.models.mimi import MimiPlans
 from pocket_tts_tpu_torch.ops import mulaw
 from pocket_tts_tpu_torch.ops.attention import raw_view
 from pocket_tts_tpu_torch.ops.conv import pad_for_frame
-from pocket_tts_tpu_torch.ops.qtensor import QTensor
+from pocket_tts_tpu_torch.ops.qtensor import QTensor, map_with_path
 from pocket_tts_tpu_torch.parallel.mesh import (
     Mesh,
     Shards,
@@ -129,6 +133,14 @@ def _map2(dst, src, fn):
         fn(dst, src)
 
 
+def _moved(w, device: torch.device):
+    """A weight of a group view (a tensor, a QTensor, or ``Shards`` of
+    either) with every piece on ``device``."""
+    if isinstance(w, Shards):
+        return Shards([p.to(device) for p in w.parts], w.dim)
+    return w.to(device)
+
+
 def place_params(params: dict, device: torch.device, dtype: torch.dtype,
                  codec_dtype: torch.dtype) -> dict:
     """Move params to ``device``: the backbone, input linear and text
@@ -155,10 +167,6 @@ def place_params(params: dict, device: torch.device, dtype: torch.dtype,
     fl["flow"]["blocks"] = {k: v.dequant() if isinstance(v, QTensor) else v
                             for k, v in fl["flow"]["blocks"].items()}
     return {"flow_lm": fl, "mimi": _map(params["mimi"], cast(codec_dtype))}
-
-
-# where the operations a mesh engine does not run yet are queued
-MESH_TODO = "ROADMAP Queue 1 item 5"
 
 
 class Engine:
@@ -221,25 +229,55 @@ class Engine:
         self.adapter_bank = None  # set_adapter_bank
         self._lora_stacks = None
         # the staged codec (enable_staged_codec): its device, its Mimi params
-        # there, and its CUDA stream
+        # there, its CUDA stream, and on a mesh the codec's own mesh (the
+        # engine's tp ranks, each on the codec's device)
         self._codec_device = None
         self._mimi_params_staged = None
         self._codec_stream = None
+        self._codec_mesh = None
 
     def set_adapter_bank(self, bank) -> None:
         """Attach a ``training.lora.AdapterBank``: its stacked factors are
-        placed once on the device in float32.  Dispatches opt in with a
-        per-slot row (``decode_frames(lora_w=)``, ``admit_prefill_slot(
-        lora_row=)``); those without one keep the plain path."""
-        if self.mesh is not None:
-            raise ValueError(f"set_adapter_bank: per-slot LoRA on a mesh engine waits for "
-                             f"{MESH_TODO}")
+        placed once in float32, for each dp group one dict per tp rank on
+        that rank's device (one dict on one device).  A product split on tp
+        gets its rank's cut: the column-parallel in_proj / ff1 their output
+        rows of ``b`` (in_proj's of each of q, k, v), the row-parallel
+        out_proj / ff2 their input columns of ``a``, whose deltas are
+        partials that the layer's ``reduce_sum`` adds, since ``sum_r (x_r
+        A_r^T) B^T = (x A^T) B^T``.  Dispatches opt in with a per-slot row
+        (``decode_frames(lora_w=)``, ``admit_prefill_slot(lora_row=)``);
+        those without one keep the plain path."""
         self.adapter_bank = bank
-        self._lora_stacks = {k: {n: torch.as_tensor(t).to(self.device, torch.float32)
-                                 for n, t in f.items()} for k, f in bank.stacks.items()}
+        stacks = {k: {n: torch.as_tensor(t).float() for n, t in f.items()}
+                  for k, f in bank.stacks.items()}
+        self._lora_stacks = [self._bank_ranks(stacks, g) for g in range(len(self._views))]
+
+    def _bank_ranks(self, stacks: dict, g: int) -> list[dict]:
+        """Dp group ``g``'s bank: one dict of factor stacks per tp rank of the
+        group's products (the lead alone for a product not split)."""
+        tf = self._views[g]["flow_lm"]["tf"]
+        ranks = []
+        for r in range(len(self.mesh.devices[g]) if self.mesh is not None else 1):
+            rank = {}
+            for name, f in stacks.items():
+                w, a, b = tf[name], f["a"], f["b"]
+                if isinstance(w, Shards):  # split on its rows (-2) or its columns (-1)
+                    if w.dim - len(w.shape) == -2:
+                        b = b.chunk(len(w), dim=-2)[r]
+                    else:
+                        a = a.chunk(len(w), dim=-1)[r]
+                    dev = w.devices[r]
+                elif r == 0:
+                    dev = self._leads[g]
+                else:
+                    continue
+                rank[name] = {"a": a.to(dev).contiguous(), "b": b.to(dev).contiguous()}
+            ranks.append(rank)
+        return ranks
 
     def _lora(self, rows, what: str):
-        """(stacks, rows [B, N] on the device) for a dispatch with adapter rows."""
+        """(each dp group's bank, rows [B, N] on the device) for a dispatch
+        with adapter rows."""
         if self._lora_stacks is None:
             raise ValueError(f"{what} requires set_adapter_bank() first")
         return self._lora_stacks, self.put(rows, torch.float32)
@@ -252,14 +290,15 @@ class Engine:
                 "mimi": self._fresh_mimi(batch)}
 
     def _fresh_mimi(self, batch: int) -> dict:
-        """A fresh codec state, on the codec's device (and made on the codec's
-        stream, which alone reads it) when the codec is staged."""
-        if self._codec_stream is not None:
-            with torch.cuda.stream(self._codec_stream):
-                return mimi.init_decode_state(self.plans, batch, self.codec_dtype,
-                                              self._codec_device)
-        return mimi.init_decode_state(self.plans, batch, self.codec_dtype,
-                                      self._codec_device or self.device)
+        """A fresh codec state, on the codec's device (made on the codec's
+        stream, which alone reads it, and on a mesh placed on the codec's
+        mesh) when the codec is staged."""
+        if self._codec_device is None:
+            return mimi.init_decode_state(self.plans, batch, self.codec_dtype, self.device)
+        with (contextlib.nullcontext() if self._codec_stream is None
+              else torch.cuda.stream(self._codec_stream)):
+            st = mimi.init_decode_state(self.plans, batch, self.codec_dtype, self._codec_device)
+            return st if self._codec_mesh is None else shard_state(st, self._codec_mesh)
 
     def new_state(self, batch: int | None = None) -> dict:
         """Empty state of ``batch`` lanes (default: the engine's batch size):
@@ -275,10 +314,15 @@ class Engine:
         return state if self.mesh is None else self._shard(state)
 
     def _shard(self, state: dict) -> dict:
+        """``state`` placed on the mesh; a staged codec's state stays on the
+        codec's mesh, where ``_fresh_mimi`` placed it."""
         if state["pos"].shape[0] % self.mesh.shape["dp"]:
             raise ValueError(f"a state of {state['pos'].shape[0]} lanes on a mesh of dp "
                              f"{self.mesh.shape['dp']}")
-        return shard_state(state, self.mesh)
+        if self._codec_mesh is None:
+            return shard_state(state, self.mesh)
+        frames = shard_state({k: v for k, v in state.items() if k != "mimi"}, self.mesh)
+        return {**frames, "mimi": state["mimi"]}
 
     def _groups(self, state: dict) -> list[dict]:
         """Each dp group's view of a state (its tp-split caches as Shards); on
@@ -397,7 +441,8 @@ class Engine:
         emb = flow_lm.embed_text(params, tokens_row.to(dev, non_blocking=True))
         t_valid = torch.full((1,), n_tokens, dtype=torch.int32, device=dev)
         _, _, new_pos = flow_lm.prefill(params, self.cfg, cut(view["kc"]), cut(view["vc"]),
-                                        view["pos"][lane], emb, t_valid, lora, lora_w)
+                                        view["pos"][lane], emb, t_valid,
+                                        None if lora is None else lora[g], lora_w)
         view["pos"][lane].copy_(new_pos)
         return state
 
@@ -576,7 +621,8 @@ class Engine:
                   for ln, d in zip(lanes, self._leads)]
         lsds = [lsd_t[ln].to(d, non_blocking=True) if per_lane else None
                 for ln, d in zip(lanes, self._leads)]
-        lora_ws = [None if lora_w is None else lora_w[ln] for ln in lanes]
+        lora_ws = [None if lora_w is None else lora_w[ln].to(d, non_blocking=True)
+                   for ln, d in zip(lanes, self._leads)]
         latents, eos_logits = [[] for _ in views], [[] for _ in views]
         for _ in range(n_frames):
             noise = flow_lm.sample_noise(generator, (b, self.ldim), temp, clamp, self.device,
@@ -585,7 +631,8 @@ class Engine:
                 v["latent"], eos_logit, _, _, v["pos"] = flow_lm.step(
                     self._views[g]["flow_lm"], self.cfg, v["kc"], v["vc"], v["pos"],
                     v["latent"], noise[lanes[g]].to(self._leads[g], non_blocking=True),
-                    tables[g], steps, lsd_vec=lsds[g], lora=lora, lora_w=lora_ws[g])
+                    tables[g], steps, lsd_vec=lsds[g], lora=None if lora is None else lora[g],
+                    lora_w=lora_ws[g])
                 latents[g].append(v["latent"])
                 eos_logits[g].append(eos_logit)
         audio = []
@@ -643,21 +690,30 @@ class Engine:
         engine's own card the stream keeps the codec's kernels apart and the
         next chunk's frames wait for it.
 
+        On a mesh (dp 1, since the batch is 1) the frames run on the mesh and
+        the codec runs the mesh's codec program, its tp ranks all on
+        ``codec_device`` (the codec's own mesh: the same products and
+        reductions in the same order), so its audio equals the unstaged mesh
+        engine's.
+
         Single-stream engines only: the continuous batcher keeps the one
         program (its admission writes the Mimi state beside the cache).  The
         audio equals the unstaged chunk schedule's op for op."""
         if self.batch != 1:
             raise ValueError("staged codec supports batch_size=1 engines; the continuous "
                              "batcher keeps the fused program")
-        if self.mesh is not None:
-            raise ValueError(f"staged codec on a mesh engine waits for {MESH_TODO}")
         dev = torch.device(codec_device)
         if dev.type != self.device.type:
             raise ValueError(f"staged codec: codec device {dev} and engine device {self.device} "
                              f"are of different types")
         self._codec_device = dev
-        self._mimi_params_staged = _map(self.params["mimi"], lambda t: t.to(dev))
+        self._mimi_params_staged = map_with_path(self._views[0]["mimi"],
+                                                 lambda _, w: _moved(w, dev))
         self._codec_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        if self.mesh is not None:
+            devs = np.empty(self.mesh.devices.shape, dtype=object)
+            devs.fill(dev)
+            self._codec_mesh = Mesh(devs)
 
     def segment_bucket(self, max_frames: int) -> int | None:
         """The smallest ``segment_buckets`` entry covering ``max_frames``

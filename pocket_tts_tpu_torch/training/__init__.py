@@ -2,7 +2,8 @@
 fine-tune of the FlowLM against (text, audio) pairs with the Mimi codec
 frozen (``loss``), its data preparation (``data``), the optimizer, step and
 artifacts (``trainer``), and LoRA adapters with the per-slot adapter bank
-(``lora``).  Multi-device training is not ported (no ``shard_batch``)."""
+(``lora``).  On a dp x tp mesh the batch is split by ``shard_batch`` and
+``finetune(mesh=)`` trains on the mesh (``parallel/mesh.py``)."""
 
 from pocket_tts_tpu_torch.training.data import (
     encode_latent_targets,
@@ -26,6 +27,7 @@ from pocket_tts_tpu_torch.training.trainer import (
     make_optimizer,
     make_train_step,
     save_finetuned_params,
+    shard_batch,
 )
 
 __all__ = [
@@ -36,6 +38,7 @@ __all__ = [
     "make_optimizer",
     "make_train_step",
     "finetune",
+    "shard_batch",
     "apply_adapted",
     "apply_finetuned",
     "save_finetuned_params",

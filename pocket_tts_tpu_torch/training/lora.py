@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from pocket_tts_tpu_torch import weights as weights_mod
-from pocket_tts_tpu_torch.ops.qtensor import QTensor
+from pocket_tts_tpu_torch.ops.qtensor import QTensor, map_with_path
+from pocket_tts_tpu_torch.parallel.mesh import Sharded, replicas
 from pocket_tts_tpu_torch.runtime.quantize import _flatten_paths
 
 # Backbone attention + FFN matrices: paths into params["flow_lm"], exact match
@@ -62,28 +63,55 @@ def lora_delta(factors: dict, scale: float) -> torch.Tensor:
     return scale * torch.einsum("...or,...ri->...oi", factors["b"].float(), factors["a"].float())
 
 
+def _merge_placed(w: Sharded, factors: dict, scale: float) -> Sharded:
+    """A base leaf placed on a mesh plus ``scale * B @ A``: each block adds
+    its cut of the delta, computed from the factors' copies in its dp group
+    (:func:`mesh.replicas`) moved to the block's device.  A block split on
+    the output rows (column-parallel in_proj / ff1) takes its rows of B, one
+    split on the input columns (row-parallel out_proj / ff2) its columns of
+    A, one split on a leading axis its slice of both."""
+    a_all, b_all = (replicas(factors[k]) for k in ("a", "b"))
+    tp = w.mesh.shape["tp"]
+    rows = []
+    for g, blocks in enumerate(w.blocks):
+        a_g, b_g = (f.group(g) if isinstance(f, Sharded) else f for f in (a_all, b_all))
+        merged = []
+        for r, blk in enumerate(blocks):
+            a, b = a_g, b_g
+            for d, axis in enumerate(w.spec):
+                if axis != "tp" or tp == 1:
+                    continue
+                if d == len(w.spec) - 1:
+                    a = a.chunk(tp, dim=-1)[r]
+                elif d == len(w.spec) - 2:
+                    b = b.chunk(tp, dim=-2)[r]
+                else:
+                    a, b = a.chunk(tp, dim=d)[r], b.chunk(tp, dim=d)[r]
+            delta = lora_delta({"a": a.to(blk.device), "b": b.to(blk.device)}, scale)
+            merged.append((blk.float() + delta).to(blk.dtype))
+        rows.append(merged)
+    return Sharded(w.spec, rows, w.mesh)
+
+
 def merge_lora(params: dict, lora: dict, *, alpha: float, rank: int) -> dict:
     """Base + deltas in float32, cast back to each leaf's dtype; the tree has
     ``params``' structure and untargeted leaves are the same tensors.  A
-    quantized (QTensor) target raises ValueError: merge into the float
-    checkpoint, then quantize."""
+    base placed on a mesh (``mesh.shard_params``; the factors placed by
+    ``mesh.shard_trainable``, replicated) merges block by block
+    (:func:`_merge_placed`).  A quantized (QTensor) target raises
+    ValueError: merge into the float checkpoint, then quantize."""
     scale = alpha / rank
     flat = dict(_flatten_paths(params))
     for path in lora:
         if isinstance(flat.get(path), QTensor):
             raise ValueError(f"merge_lora: {path} is quantized; LoRA merges into a float "
                              "checkpoint (apply the adapter before quantizing)")
-    merged = {path: (flat[path].float() + lora_delta(f, scale).to(flat[path].device)
-                     ).to(flat[path].dtype) for path, f in lora.items()}
-
-    def rebuild(node, prefix=""):
-        if isinstance(node, dict):
-            return {k: rebuild(v, f"{prefix}{k}/") for k, v in node.items()}
-        if isinstance(node, list):
-            return [rebuild(v, f"{prefix}{i}/") for i, v in enumerate(node)]
-        return merged.get(prefix[:-1], node)
-
-    return rebuild(params)
+    merged = {path: _merge_placed(flat[path], f, scale) if isinstance(flat[path], Sharded)
+              else (flat[path].float() + lora_delta(f, scale).to(flat[path].device)
+                    ).to(flat[path].dtype) for path, f in lora.items()}
+    # no recursive closure here: its reference cycle would hold each step's
+    # merged copies (and their graphs) until the garbage collector runs
+    return map_with_path(params, lambda path, leaf: merged.get(path, leaf))
 
 
 def make_lora_train_step(cfg, optimizer, *, alpha: float, rank: int, eos_weight: float = 1.0,
@@ -91,7 +119,10 @@ def make_lora_train_step(cfg, optimizer, *, alpha: float, rank: int, eos_weight:
     """A LoRA update step ``train_step(lora, opt_state, base, batch,
     generator=None, *, draws=None) -> (lora, opt_state, metrics)``:
     gradients flow through the merge into the factors only, and the frozen
-    ``base`` is never written.  ``opt_state`` is ``optimizer.init(lora)``."""
+    ``base`` is never written.  ``opt_state`` is ``optimizer.init(lora)``.
+    On a mesh ``base`` is placed by ``mesh.shard_params``, ``lora`` by
+    ``mesh.shard_trainable`` (replicated: each factor's gradient reaches its
+    one master) and the batch by ``trainer.shard_batch``."""
     from pocket_tts_tpu_torch.training.loss import flow_matching_loss
     from pocket_tts_tpu_torch.training.trainer import _update
 

@@ -34,6 +34,7 @@ from pocket_tts_tpu_torch.models.flow_lm import embed_text, speaker_project
 from pocket_tts_tpu_torch.ops.norms import layer_norm
 from pocket_tts_tpu_torch.ops.qtensor import mat
 from pocket_tts_tpu_torch.ops.rope import rope_table
+from pocket_tts_tpu_torch.parallel.mesh import Sharded, group_view, reduce_sum, replicas
 
 
 def _two_time_embedding(flow_params: dict, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -127,25 +128,18 @@ def _tensor(v, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return t.to(device=dev, dtype=dtype)
 
 
-def flow_matching_loss(params: dict, cfg: Config, batch: dict,
-                       generator: torch.Generator | None = None, *, draws: dict | None = None,
-                       eos_weight: float = 1.0, consistency_weight: float = 0.0
-                       ) -> tuple[torch.Tensor, dict]:
-    """Total loss and metrics (``flow_mse``, ``eos_bce``, ``consistency``
-    when on, ``loss``) for one batch on the params' device.
-
-    ``batch``: tokens [B, Tt] int, token_valid [B], latents [B, Tf, ldim]
-    (normalized, ``data.encode_latent_targets``), latent_valid [B], optional
-    voice_latents [B, Tv, 512]; numpy arrays or tensors.  ``draws``: the
-    pre-sampled noise (:func:`sample_draws`' names); else it is drawn from
-    ``generator``."""
+def _group_terms(params: dict, cfg: Config, batch: dict, draws: dict,
+                 consistency: bool) -> dict:
+    """The numerator and denominator of each masked mean (``flow_mse``,
+    ``eos_bce``, with ``consistency`` also ``consistency``) over one dp
+    group's lanes, on the group's lead device."""
     dev = params["out_eos_w"].device
 
     def get(name, dtype):
         return _tensor(batch[name], dev, dtype)
 
     latents = get("latents", torch.float32)
-    b, tf, ldim = latents.shape
+    tf = latents.shape[1]
     fv = get("latent_valid", torch.long)
     voice = get("voice_latents", torch.float32) if "voice_latents" in batch else None
     cond_emb, cond_valid = build_conditioning(params, get("tokens", torch.long),
@@ -159,27 +153,22 @@ def flow_matching_loss(params: dict, cfg: Config, batch: dict,
     eos_mask = (i <= fv[:, None]).float()
     bce = (eos_logits.clamp_min(0) - eos_logits * eos_target
            + torch.log1p(torch.exp(-eos_logits.abs())))
-    eos_loss = (bce * eos_mask).sum() / eos_mask.sum().clamp_min(1.0)
+    terms = {"eos_bce": ((bce * eos_mask).sum(), eos_mask.sum())}
 
     # flow matching at t = s
     flow = params["flow"]
     cond_flow = flow_mlp.embed_condition(flow, h_frames[:, :tf])  # [B, Tf, dim]
     frame_mask = (torch.arange(tf, device=dev)[None, :] < fv[:, None]).float()
-    denom = frame_mask.sum().clamp_min(1.0)
-    if draws is None:
-        draws = sample_draws(generator, b, tf, ldim, dev, consistency_weight > 0.0)
     d = {k: _tensor(v, dev, torch.float32) for k, v in draws.items()}
     eps, s = d["eps"], d["s"]
     x_s = (1.0 - s[..., None]) * eps + s[..., None] * latents
     v_target = latents - eps
     v = _flow(flow, _two_time_embedding(flow, s, s) + cond_flow, x_s)
-    flow_loss = ((v.float() - v_target).square().mean(dim=-1) * frame_mask).sum() / denom
-
-    metrics = {"flow_mse": flow_loss, "eos_bce": eos_loss}
-    total = flow_loss + eos_weight * eos_loss
+    terms["flow_mse"] = (((v.float() - v_target).square().mean(dim=-1) * frame_mask).sum(),
+                         frame_mask.sum())
 
     # LSD self-consistency over a finite jump (opt-in)
-    if consistency_weight > 0.0:
+    if consistency:
         eps2, s2 = d["eps2"], d["s2"]
         t2 = s2 + (1.0 - s2) * d["u2"]
         m = (s2 + t2) / 2.0
@@ -190,9 +179,72 @@ def flow_matching_loss(params: dict, cfg: Config, batch: dict,
         v2 = _flow(flow, _two_time_embedding(flow, m, t2) + cond_flow, x_m)
         v_teach = ((v1.float() + v2.float()) / 2.0).detach()
         v_stu = _flow(flow, _two_time_embedding(flow, s2, t2) + cond_flow, x_s2)
-        cons = ((v_stu.float() - v_teach).square().mean(dim=-1) * frame_mask).sum() / denom
+        terms["consistency"] = (((v_stu.float() - v_teach).square().mean(dim=-1)
+                                 * frame_mask).sum(), frame_mask.sum())
+    return terms
+
+
+def _groups(params: dict, batch: dict) -> tuple[list[dict], list[dict]]:
+    """(each dp group's params, each group's batch): on a mesh (params placed
+    by ``mesh.shard_trainable`` or ``shard_params``) the groups' views, every
+    group's replicas built from the masters, and the batch split by
+    ``trainer.shard_batch`` unless it is placed already; else the one group."""
+    leaf = params["out_eos_w"]
+    if not isinstance(leaf, Sharded):
+        return [params], [batch]
+    mesh = leaf.mesh
+    if not isinstance(batch["latents"], Sharded):
+        from pocket_tts_tpu_torch.training.trainer import shard_batch
+
+        batch = shard_batch(batch, mesh)
+    full = replicas(params)
+    dp = mesh.shape["dp"]
+    return [group_view(full, g) for g in range(dp)], [group_view(batch, g) for g in range(dp)]
+
+
+def flow_matching_loss(params: dict, cfg: Config, batch: dict,
+                       generator: torch.Generator | None = None, *, draws: dict | None = None,
+                       eos_weight: float = 1.0, consistency_weight: float = 0.0
+                       ) -> tuple[torch.Tensor, dict]:
+    """Total loss and metrics (``flow_mse``, ``eos_bce``, ``consistency``
+    when on, ``loss``) for one batch on the params' device, or on a mesh.
+
+    ``batch``: tokens [B, Tt] int, token_valid [B], latents [B, Tf, ldim]
+    (normalized, ``data.encode_latent_targets``), latent_valid [B], optional
+    voice_latents [B, Tv, 512]; numpy arrays or tensors, or placed by
+    ``trainer.shard_batch``.  ``draws``: the pre-sampled noise
+    (:func:`sample_draws`' names); else it is drawn from ``generator``.
+
+    On a mesh each dp group runs its lanes through the backbone split over
+    its tp ranks; the noise is one draw for the whole batch on the lead
+    device, split by group (the one-device draws), and each term is a
+    masked mean over the whole batch: the groups' numerators and
+    denominators are added on the lead in group order (``mesh.reduce_sum``),
+    then divided once."""
+    views, batches = _groups(params, batch)
+    dev = views[0]["out_eos_w"].device
+    lanes = [batch_["latents"].shape[0] for batch_ in batches]
+    _, tf, ldim = batches[0]["latents"].shape
+    consistency = consistency_weight > 0.0
+    if draws is None:
+        draws = sample_draws(generator, sum(lanes), tf, ldim, dev, consistency)
+    draws = {k: _tensor(v, dev, torch.float32) for k, v in draws.items()}
+    parts, lo = [], 0
+    for view, batch_, n in zip(views, batches, lanes):
+        d = {k: v[lo:lo + n] for k, v in draws.items()}
+        parts.append(_group_terms(view, cfg, batch_, d, consistency))
+        lo += n
+
+    def mean(name: str) -> torch.Tensor:
+        num = reduce_sum([p[name][0] for p in parts], dev)
+        return num / reduce_sum([p[name][1] for p in parts], dev).clamp_min(1.0)
+
+    flow_loss, eos_loss = mean("flow_mse"), mean("eos_bce")
+    metrics = {"flow_mse": flow_loss, "eos_bce": eos_loss}
+    total = flow_loss + eos_weight * eos_loss
+    if consistency:
+        cons = mean("consistency")
         metrics["consistency"] = cons
         total = total + consistency_weight * cons
-
     metrics["loss"] = total
     return total, metrics

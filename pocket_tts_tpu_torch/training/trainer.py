@@ -5,7 +5,10 @@ artifact.
 The step updates the FlowLM subtree only (backbone, flow head, text
 embedding, EOS head); the Mimi codec stays frozen.  Training runs in float32
 on the model's device, on copies of ``model.params["flow_lm"]`` (never the
-engine's bf16 placement).  The optimizer is optax's
+engine's bf16 placement), or on a dp x tp mesh (``parallel/mesh.py``): the
+params placed by ``mesh.shard_trainable`` (one float32 master per logical
+block), the batch split over dp by :func:`shard_batch`, and backward adding
+every replica's gradient into its master.  The optimizer is optax's
 ``chain(clip_by_global_norm(clip), adamw(schedule, weight_decay))`` written
 over ``torch.optim.AdamW``: the global-norm clip as optax computes it, and
 the schedule's rate set before each step (optax evaluates it at the count of
@@ -24,6 +27,15 @@ import torch
 from pocket_tts_tpu_torch import weights as weights_mod
 from pocket_tts_tpu_torch.config import Config
 from pocket_tts_tpu_torch.ops.qtensor import QTensor
+from pocket_tts_tpu_torch.parallel.mesh import (
+    Mesh,
+    Spec,
+    _place,
+    gather,
+    masters,
+    shard_params,
+    shard_trainable,
+)
 from pocket_tts_tpu_torch.runtime.engine import Engine, _map
 from pocket_tts_tpu_torch.runtime.quantize import _flatten_paths, _unflatten_paths
 from pocket_tts_tpu_torch.training.data import make_batch
@@ -55,7 +67,8 @@ def _schedule(lr: float, warmup_steps: int, total_steps: int | None):
 
 class Optimizer:
     """What ``make_optimizer`` returns: ``init(params)`` gives the state (an
-    :class:`OptState`) for a param tree, whose float leaves train."""
+    :class:`OptState`) for a param tree, whose float leaves train (on a mesh
+    the masters of ``mesh.shard_trainable``'s leaves)."""
 
     def __init__(self, lr: float, weight_decay: float, clip_norm: float,
                  warmup_steps: int, total_steps: int | None):
@@ -64,7 +77,7 @@ class Optimizer:
         self.clip_norm = clip_norm
 
     def init(self, params: dict) -> "OptState":
-        return OptState(self, [t for _, t in _flatten_paths(params)])
+        return OptState(self, masters(params))
 
 
 class OptState:
@@ -81,17 +94,21 @@ class OptState:
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """Clip the gradients by their global norm, then one AdamW step at the
-        schedule's rate; returns the norm before clipping.  A leaf the loss
-        does not reach has a zero gradient (optax still decays it)."""
+        schedule's rate; returns the norm before clipping (on the first
+        leaf's device; each leaf's squares are summed where it lies).  A leaf
+        the loss does not reach has a zero gradient (optax still decays
+        it)."""
         grads = []
         for t in self.leaves:
             if t.grad is None:
                 t.grad = torch.zeros_like(t)
             grads.append(t.grad)
-        norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+        dev = grads[0].device
+        norm = torch.stack([g.square().sum().to(dev) for g in grads]).sum().sqrt()
         keep = norm < self.opt.clip_norm
         for g in grads:
-            g.copy_(torch.where(keep, g, g / norm * self.opt.clip_norm))
+            n, k = norm.to(g.device), keep.to(g.device)
+            g.copy_(torch.where(k, g, g / n * self.opt.clip_norm))
         self.adamw.param_groups[0]["lr"] = self.opt.schedule(self.count)
         self.adamw.step()
         self.count += 1
@@ -135,6 +152,22 @@ def make_train_step(cfg: Config, optimizer: Optimizer, *, eos_weight: float = 1.
     return train_step
 
 
+def shard_batch(batch: dict, mesh: Mesh) -> dict:
+    """Place every batch leaf (numpy array or tensor) with its leading (batch)
+    axis split over the mesh's ``dp`` axis: group g gets lanes ``[g B/dp,
+    (g+1) B/dp)``, a tensor of its own on the group's lead device.  A batch
+    that ``dp`` does not divide raises."""
+    dp = mesh.shape["dp"]
+    out = {}
+    for k, v in batch.items():
+        t = v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))
+        if t.shape[0] % dp:
+            raise ValueError(f"shard_batch: {k} has {t.shape[0]} lanes, not a multiple of the "
+                             f"mesh's dp {dp}")
+        out[k] = _place(t, Spec("dp", *([None] * (t.dim() - 1))), mesh, every_device=False)
+    return out
+
+
 def _refuse_quantized(params: dict, what: str) -> None:
     quantized = [p for p, leaf in _flatten_paths(params) if isinstance(leaf, QTensor)]
     if quantized:
@@ -167,19 +200,22 @@ def finetune(model, pairs: list, *, steps: int = 200, batch_size: int | None = N
              voice_wav: np.ndarray | None = None, max_tokens: int | None = None, seed: int = 0,
              log_every: int = 25, mesh=None, lora_rank: int = 0, lora_alpha: float | None = None,
              lora_targets: tuple[str, ...] | None = None):
-    """Fine-tune ``model`` on (text, waveform) pairs on its device; returns a
-    clone running the tuned FlowLM, with ``_finetune_metrics`` (the last
-    logged step's) and, for LoRA, ``_lora = (factors, rank, alpha)``.
+    """Fine-tune ``model`` on (text, waveform) pairs on its device, or on
+    ``mesh``; returns a single-device clone (on the model's device) running
+    the tuned FlowLM, with ``_finetune_metrics`` (the last logged step's)
+    and, for LoRA, ``_lora = (factors on the CPU, rank, alpha)``.
 
     All examples are padded to one global batch; minibatches are row slices
     of it in the order of ``np.random.default_rng(seed)`` (the JAX package's
     permutations), wrapping around.  ``lora_rank > 0`` trains rank-r factors
     over ``lora_targets`` only (base frozen) and merges them into the clone.
-    The loss's noise comes from a ``torch.Generator`` seeded with ``seed``.
-    A quantized model is refused; ``mesh`` (multi-device) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError("finetune(mesh=...): multi-device training waits for the "
-                                  "port's multi-device slice (ROADMAP Queue 1 item 5)")
+    The loss's noise comes from a ``torch.Generator`` seeded with ``seed``
+    (on the mesh's lead device: a mesh step sees the one-device draws).
+    With a ``mesh`` the float32 params (LoRA: the base) are placed on it
+    (``shard_trainable``; the base by ``shard_params``, the factors
+    replicated), every minibatch by :func:`shard_batch`, and the tuned tree
+    is gathered onto the model's device at the end.  A quantized model is
+    refused."""
     _refuse_quantized(model.params["flow_lm"], "finetune")
     full = make_batch(model, pairs, voice_wav=voice_wav, max_tokens=max_tokens)
     n = len(pairs)
@@ -196,17 +232,20 @@ def finetune(model, pairs: list, *, steps: int = 200, batch_size: int | None = N
         alpha = float(lora_alpha if lora_alpha is not None else lora_rank)
         targets = tuple(lora_targets or LORA_DEFAULT_TARGETS)
         base, params = f32, init_lora(f32, lora_rank, targets=targets, seed=seed)
+        if mesh is not None:
+            base, params = shard_params(f32, mesh), shard_trainable(params, mesh)
         step_fn = make_lora_train_step(model.config, optimizer, alpha=alpha, rank=lora_rank,
                                        eos_weight=eos_weight,
                                        consistency_weight=consistency_weight)
     else:
-        params = f32
+        params = f32 if mesh is None else shard_trainable(f32, mesh)
         step_fn = make_train_step(model.config, optimizer, eos_weight=eos_weight,
                                   consistency_weight=consistency_weight)
+    del f32  # on a mesh its placed copies replace it
     opt_state = optimizer.init(params)
 
     rng = np.random.default_rng(seed)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    generator = torch.Generator(device=dev if mesh is None else mesh.lead(0)).manual_seed(seed)
     order = rng.permutation(n)
     cursor = 0
     t0 = time.time()
@@ -217,7 +256,8 @@ def finetune(model, pairs: list, *, steps: int = 200, batch_size: int | None = N
             cursor = 0
         idx = order[cursor:cursor + bsz]
         cursor += bsz
-        mb = {k: torch.from_numpy(np.asarray(v)[idx]).to(dev) for k, v in full.items()}
+        mb = {k: torch.from_numpy(np.asarray(v)[idx]) for k, v in full.items()}
+        mb = {k: v.to(dev) for k, v in mb.items()} if mesh is None else shard_batch(mb, mesh)
         if use_lora:
             params, opt_state, metrics = step_fn(params, opt_state, base, mb, generator)
         else:
@@ -230,10 +270,10 @@ def finetune(model, pairs: list, *, steps: int = 200, batch_size: int | None = N
 
     with torch.no_grad():
         tuned = merge_lora(base, params, alpha=alpha, rank=lora_rank) if use_lora else params
-        clone = _adapted_clone(model, tuned)
+        clone = _adapted_clone(model, tuned if mesh is None else gather(tuned, dev))
     clone._finetune_metrics = last
     if use_lora:
-        clone._lora = (_map(params, lambda t: t.detach().cpu()), lora_rank, alpha)
+        clone._lora = (_map(gather(params, "cpu"), torch.Tensor.detach), lora_rank, alpha)
     return clone
 
 

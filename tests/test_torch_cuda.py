@@ -262,6 +262,156 @@ def test_staged_codec_on_its_own_stream_is_bit_identical(cuda_device):
     np.testing.assert_array_equal(pcm[1], pcm[0])
 
 
+def _train_batch(b=4, tf=5, ldim=16):
+    """A training batch with unequal latent_valid between dp groups."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return {"tokens": rng.integers(1, 50, size=(b, 6)).astype(np.int32),
+            "token_valid": np.array([6, 4, 6, 5][:b], np.int32),
+            "latents": rng.normal(size=(b, tf, ldim)).astype(np.float32),
+            "latent_valid": np.array([5, 3, 4, 5][:b], np.int32)}
+
+
+def test_sharded_train_steps_on_one_card_match_single_device(cuda_device):
+    """One full and one LoRA step of the small config in float32 (TF32 off)
+    on dp 2 x tp 2 over [cuda:0] * 4 against the one-device step on the card,
+    the same draws: loss rtol 2e-4, params (factors) after the step rtol
+    2e-3 / atol 2e-4 (tests/test_training.py:338-345), grad_norm within
+    1e-5 relative; no hand kernel launched."""
+    from pocket_tts_tpu_torch import config as c
+    from pocket_tts_tpu_torch import training, weights
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+    from pocket_tts_tpu_torch.kernels import qlinear as ql
+    from pocket_tts_tpu_torch.parallel import mesh as pm
+    from pocket_tts_tpu_torch.training.trainer import _map
+
+    cfg = _small_config(c.RuntimeConfig())
+    flow_lm = _map(weights.from_state_dict(weights.random_state_dict(cfg, 3), cfg)["flow_lm"],
+                   lambda t: t.to(cuda_device))
+    batch = _train_batch()
+    draws = training.loss.sample_draws(torch.Generator().manual_seed(1), 4, 5, 16,
+                                       torch.device("cpu"))
+    mesh = pm.make_mesh(4, tp=2, devices=[cuda_device] * 4)
+    launches = (fb.flow_blocks.launches, ql.qlinear.launches, da.decode_attention.launches)
+    opt = training.make_optimizer(1e-3)
+    full = training.make_train_step(cfg, opt)
+    lora = training.make_lora_train_step(cfg, opt, alpha=2.0, rank=2)
+    runs = []
+    for placed in (False, True):
+        p = pm.shard_trainable(flow_lm, mesh) if placed else _map(flow_lm, torch.clone)
+        b = training.shard_batch(batch, mesh) if placed else batch
+        p, _, m_full = full(p, opt.init(p), b, draws=draws)
+        base = pm.shard_params(flow_lm, mesh) if placed else flow_lm
+        f = training.init_lora(flow_lm, 2, seed=4)
+        f = {t: {"a": x["a"], "b": x["b"] + 0.01} for t, x in f.items()}
+        f = pm.shard_trainable(f, mesh) if placed else f
+        f, _, m_lora = lora(f, opt.init(f), base, b, draws=draws)
+        runs.append((pm.gather(p, "cpu"), m_full, pm.gather(f, "cpu"), m_lora))
+    assert launches == (fb.flow_blocks.launches, ql.qlinear.launches,
+                        da.decode_attention.launches)
+    (p1, mf1, f1, ml1), (p2, mf2, f2, ml2) = runs
+    for one, sh in ((mf1, mf2), (ml1, ml2)):
+        assert abs(sh["loss"].item() - one["loss"].item()) <= 2e-4 * abs(one["loss"].item())
+        assert abs(sh["grad_norm"].item() - one["grad_norm"].item()) <= \
+            1e-5 * one["grad_norm"].item()
+    for one, sh in ((p1, p2), (f1, f2)):
+        flat_one, flat_sh = dict(_flat(one)), dict(_flat(sh))
+        assert sorted(flat_one) == sorted(flat_sh)
+        for k, v in flat_one.items():
+            torch.testing.assert_close(flat_sh[k], v.detach().cpu(), rtol=2e-3, atol=2e-4)
+
+
+def _flat(tree):
+    from pocket_tts_tpu_torch.runtime.quantize import _flatten_paths
+
+    return _flatten_paths(tree)
+
+
+def test_bank_on_a_tp2_engine_on_one_card(cuda_device):
+    """The adapter bank on a float32 tp 2 engine over [cuda:0] * 2, B = 4
+    (two adapters, a zero row), against the one-device bank on the card at
+    temp 0.5 from one generator: int16 audio within 1 LSB, latents within
+    1e-4; decode_attention launches = frames x layers x dp x tp."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from pocket_tts_tpu_torch import config as c
+    from pocket_tts_tpu_torch import weights
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+    from pocket_tts_tpu_torch.parallel.mesh import gather, make_mesh
+    from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams
+    from pocket_tts_tpu_torch.training import init_lora, save_lora_params
+    from pocket_tts_tpu_torch.training.lora import build_adapter_bank
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _small_config(c.RuntimeConfig(compute_dtype="float32", max_seq=256))
+    params = weights.from_state_dict(weights.random_state_dict(cfg, 4), cfg)
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, rank, seed in (("one", 2, 5), ("two", 3, 6)):
+            f = init_lora(params["flow_lm"], rank, seed=seed)
+            g = torch.Generator().manual_seed(seed)
+            f = {t: {"a": x["a"], "b": torch.randn(x["b"].shape, generator=g) * 0.05}
+                 for t, x in f.items()}
+            paths[name] = str(Path(tmp) / f"{name}.safetensors")
+            save_lora_params(f, paths[name], rank=rank, alpha=float(rank))
+        bank = build_adapter_bank(paths)
+    rows = np.stack([bank.row(n) for n in ("one", None, "two", "one")])
+    outs = []
+    for mesh in (None, make_mesh(2, devices=[cuda_device] * 2)):
+        eng = Engine(cfg, params, None if mesh else cuda_device, batch_size=4, mesh=mesh)
+        eng.set_adapter_bank(bank)
+        empty = Engine(cfg, params, cuda_device).new_state(1)
+        st = eng.new_state()
+        for i in range(4):
+            tok = np.arange(1, 4 + i, dtype=np.int32)[None]
+            st = eng.admit_prefill_slot(st, i, empty, eng.pad_token_row(tok), tok.shape[1],
+                                        lora_row=rows[i])
+        gen, pcm = torch.Generator(device=cuda_device).manual_seed(0), []
+        da.decode_attention.launches = 0
+        for _ in range(2):
+            st, audio, _ = eng.decode_frames(st, 2, GenParams(temp=0.5), gen, lora_w=rows)
+            pcm.append(audio.cpu().numpy().astype(np.int64))
+        assert da.decode_attention.launches == 4 * 2 * (2 if mesh else 1)
+        outs.append((np.concatenate(pcm, 1), gather(st["latent"], "cpu").numpy()))
+    assert np.abs(outs[0][0] - outs[1][0]).max() <= 1
+    np.testing.assert_allclose(outs[1][1], outs[0][1], atol=1e-4, rtol=1e-4)
+    assert np.abs(outs[1][0][0] - outs[1][0][1]).max() > 1  # the adapter moves the audio
+
+
+def test_staged_codec_on_a_tp2_engine_on_one_card(cuda_device):
+    """A tp 2 engine over [cuda:0] * 2 with its codec staged on a CUDA stream
+    of its own: chunked decode_frames audio bit for bit the unstaged tp 2
+    engine's."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch import config as c
+    from pocket_tts_tpu_torch import weights
+    from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+    from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams
+
+    cfg = _small_config(c.RuntimeConfig(compute_dtype="float32", max_seq=256))
+    params = weights.from_state_dict(weights.random_state_dict(cfg, 5), cfg)
+    pcm = []
+    for staged in (False, True):
+        eng = Engine(cfg, params, batch_size=1, mesh=make_mesh(2, devices=[cuda_device] * 2))
+        if staged:
+            eng.enable_staged_codec(cuda_device)
+            assert eng._codec_stream != torch.cuda.current_stream(cuda_device)
+        st = eng.prefill_tokens(eng.reset_for_segment(
+            Engine(cfg, params, cuda_device).new_state(1)), np.array([[1, 2, 3]], np.int32), 3)
+        g, chunks = torch.Generator(device=cuda_device).manual_seed(0), []
+        for _ in range(3):
+            st, audio, _ = eng.decode_frames(st, 4, GenParams(temp=0.5), g)
+            chunks.append(audio.cpu().numpy())
+        pcm.append(np.concatenate(chunks, 1))
+    assert pcm[0].size > 0
+    np.testing.assert_array_equal(pcm[1], pcm[0])
+
+
 # -- qlinear: the weight-only int8 / int4 products ------------------------------
 
 # (M, N, K) of the decode frame at B = 1, 4, 16, 32: in_proj as [3E, E], ff1,

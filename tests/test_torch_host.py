@@ -221,6 +221,10 @@ mesh_eng = Engine(cfg, model.params, batch_size=2, mesh=make_mesh(2, devices=["c
 st = mesh_eng.prefill_tokens(mesh_eng.new_state(), np.ones((2, 3), np.int32), 3)
 _, pcm, _ = mesh_eng.decode_frames(st, 2, GenParams(temp=0.5), torch.Generator())
 assert mesh_eng.mesh.shape == {"dp": 1, "tp": 2} and pcm.shape == (2, 2 * 1920)
+from pocket_tts_tpu_torch.training import shard_batch
+placed = shard_batch({"latent_valid": np.array([3, 5], np.int32)},
+                     make_mesh(2, tp=1, devices=["cpu"] * 2))
+assert [int(placed["latent_valid"].group(g)[0]) for g in range(2)] == [3, 5]
 loaded = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and m.split(".")[0] in ("jax", "pocket_tts_tpu"))
 assert not loaded, loaded

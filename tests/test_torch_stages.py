@@ -9,7 +9,9 @@ packages (weights.random_params -> export_state_dict -> from_state_dict), the
 small config of tests/test_tts.py, temp 0.  Bounds: tests/test_stages.py's
 4e-5 in float audio (1 int16 LSB) against the fused segment, bit for bit
 against the unstaged chunk schedule, 1e-4 against JAX's staged model (the
-port-vs-JAX bound of tests/test_torch_tts.py).
+port-vs-JAX bound of tests/test_torch_tts.py).  A mesh engine (dp 1 x tp 2
+on the repeated CPU device) stages its codec too: bit for bit the unstaged
+mesh engine.
 """
 
 import dataclasses
@@ -26,6 +28,7 @@ from pocket_tts_tpu.tts import TTSModel as JaxTTS
 from pocket_tts_tpu_torch import tts as tts_mod
 from pocket_tts_tpu_torch import weights as tweights
 from pocket_tts_tpu_torch.config import config_from_dict
+from pocket_tts_tpu_torch.parallel import mesh as tmesh
 from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams
 from pocket_tts_tpu_torch.tts import TTSModel
 from tests.test_stages import TEXT
@@ -86,6 +89,40 @@ def test_staged_codec_streaming_and_voice(exported):
     want = np.concatenate(list(fused.generate_stream("Hello there.", vs_f)))
     got = np.concatenate(list(staged.generate_stream("Hello there.", vs_s)))
     np.testing.assert_allclose(got, want, atol=LSB_TOL)
+
+
+def _on_mesh(model: TTSModel, staged: bool) -> TTSModel:
+    """``model`` running a dp 1 x tp 2 mesh engine (its codec staged on the
+    CPU when ``staged``)."""
+    model.engine = Engine(model.config, model.params, batch_size=1,
+                          mesh=tmesh.make_mesh(2, tp=2, devices=[CPU] * 2))
+    if staged:
+        model.engine.enable_staged_codec(CPU)
+    return model
+
+
+def test_staged_codec_on_a_mesh_engine(exported):
+    """The frames on a dp 1 x tp 2 mesh, the codec staged (its tp ranks on the
+    codec's device): generate bit for bit the unstaged mesh engine's chunk
+    schedule and within 1e-4 of JAX's staged model; the codec's state lives
+    on the codec's mesh, the cache on the engine's; a batch of 2 on a mesh
+    raises."""
+    jp, params = exported
+    staged = _on_mesh(_model(params, False), True)
+    plain = _on_mesh(_chunked(params), False)
+    got = staged.generate(TEXT)
+    assert got.size > 0
+    np.testing.assert_array_equal(got, plain.generate(TEXT))
+    eng = staged.engine
+    st = eng.reset_for_segment(staged.get_voice_state().as_dict())
+    assert st["mimi"]["kc"].mesh is eng._codec_mesh and st["kc"].mesh is eng.mesh
+    assert eng._codec_mesh.shape == eng.mesh.shape
+    jstaged = JaxTTS(CFG, jp, gen=JaxGen(temp=0.0), has_real_weights=False)
+    jstaged.engine.enable_staged_codec(jax.devices()[1])
+    np.testing.assert_allclose(got, jstaged.generate(TEXT), atol=JAX_TOL)
+    wide = Engine(PCFG, params, batch_size=2, mesh=tmesh.make_mesh(2, tp=2, devices=[CPU] * 2))
+    with pytest.raises(ValueError, match="batch_size=1"):
+        wide.enable_staged_codec(CPU)
 
 
 def test_staged_codec_rejects_batched_engine(exported):

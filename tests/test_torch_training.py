@@ -2,7 +2,8 @@
 JAX package's ``pocket_tts_tpu/training``, on the small config of
 tests/test_tts.py with one weight set for both packages (weights.random_params
 -> export_state_dict -> the port's from_state_dict).  Every case of
-tests/test_training.py but the two sharded ones (multi-device is not ported).
+tests/test_training.py but the two sharded ones, which are in
+tests/test_torch_mesh_train.py.
 
 Bounds, float32 on the CPU:
 
@@ -405,10 +406,3 @@ def test_quantized_base_is_refused_by_both_packages(model, exported):
     jfactors = jlora.init_lora(exported[0]["flow_lm"], rank=2)
     with pytest.raises(TypeError):
         jlora.merge_lora(jq, jfactors, alpha=2.0, rank=2)
-
-
-def test_finetune_mesh_is_not_ported(model):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        training.finetune(model, _pairs(3), steps=1, mesh=object())
-    assert "shard_batch" not in training.__all__
-    assert sorted(training.__all__) == sorted(set(jtraining.__all__) - {"shard_batch"})
