@@ -194,6 +194,27 @@ result line):
    kernel's entry of the JSON line gains ``launches_mesh_adapters``, the
    counts of (d).
 
+13. The installed port: the port's wheel is built from a copy of this
+   checkout's sources (``copy_wheel_sources``; ``pip wheel --no-deps
+   --no-build-isolation --no-index``) and installed with ``pip install
+   --no-deps --target`` into a temporary site; either pip failing, or no
+   ``site/bin/pocket-tts-tpu-torch``, fails the phase.  A subprocess at the
+   temporary directory, with the install as its whole PYTHONPATH and a
+   fresh XDG_CACHE_HOME, imports the port from the install (its
+   ``__file__``, ``BUILD_DIR`` and kernel sources checked), builds the three
+   kernels from the install's csrc/ into the fresh cache (timed), runs phase
+   4's temp-0 ``generate`` of ``TEXT`` on the same seeded weights and an
+   int8 ``generate`` of ``NARROW_TEXT``, each under the launch counters
+   (flow_blocks = frames x steps, decode_attention = frames x 6, qlinear on
+   int8 only), and finds no jax or pocket_tts_tpu module loaded; meanwhile
+   this process repeats phase 4's ``generate`` and makes the same int8
+   audio.  Then the installed ``pocket-tts-tpu-torch generate --temperature
+   0 --eos-threshold inf`` writes a WAV.  Nothing under the install changed
+   and the cache holds the three libraries.  The install's audio and the
+   command's WAV against this process's: bit for bit, or the max |diff| in
+   int16 LSB beside its own repeat's, within ``REF_TOL_LSB``.  Each
+   kernel's entry of the JSON line gains ``launches_installed``.
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
@@ -705,7 +726,8 @@ def _pcm(a: np.ndarray) -> np.ndarray:
 
 def phase_main_path(smi: str):
     """The main path at B=1; returns the model, the flow_blocks launches, the
-    decode_attention launches and the B=1 profile."""
+    decode_attention launches, the B=1 profile and the temp-0 ``generate``'s
+    audio with its GenParams."""
     from pocket_tts_tpu_torch import TTSModel
     from pocket_tts_tpu_torch.kernels import flow_blocks as fb
 
@@ -758,7 +780,8 @@ def phase_main_path(smi: str):
           f"in {first_ms:.1f} ms, {1 + len(rest)} chunks")
 
     model.gen = dataclasses.replace(model.gen, temp=0.0)
-    a = model.generate(TEXT)
+    ref = {"audio": model.generate(TEXT), "gen": model.gen}  # phase 13's reference
+    a = ref["audio"]
     b = np.concatenate(list(model.generate_stream(TEXT)))
     _require(a.shape == b.shape, f"stream {b.shape} vs generate {a.shape}")
     lsb = int(np.abs(_pcm(a) - _pcm(b)).max())
@@ -782,7 +805,7 @@ def phase_main_path(smi: str):
     profile = _kernel_profile(lambda: model.generate(NARROW_TEXT), eng,
                               f"B=1 (generate {NARROW_TEXT!r})", smi)
     model.gen = saved
-    return model, launches, attn, profile
+    return model, launches, attn, profile, ref
 
 
 # -- phase 4b: the fused segment decode ------------------------------------------
@@ -3684,6 +3707,218 @@ def phase_mesh_train(model, dev, smi: str) -> dict:
     return out
 
 
+# -- phase 13: the installed port ------------------------------------------------------
+
+# what `pip wheel` of a checkout reads: the packaging files, the native audio
+# source that setup.py compiles, and the two packages
+WHEEL_SOURCES = ("pyproject.toml", "setup.py", "README.md", "native", "pocket_tts_tpu",
+                 "pocket_tts_tpu_torch")
+
+
+def copy_wheel_sources(dst: Path) -> None:
+    """WHEEL_SOURCES of this checkout copied into ``dst``, without bytecode or
+    build outputs, for ``pip wheel`` to build from (it writes ``build/`` and an
+    egg-info into the tree it reads).  tests/test_torch_install.py builds its
+    wheel from the same copy."""
+    import shutil
+
+    root = Path(__file__).resolve().parent
+    skip = shutil.ignore_patterns("__pycache__", "*.pyc", "*.so", "build", "*.egg-info")
+    dst.mkdir(parents=True)
+    for name in WHEEL_SOURCES:
+        if (root / name).is_dir():
+            shutil.copytree(root / name, dst / name, ignore=skip)
+        else:
+            shutil.copy2(root / name, dst / name)
+
+
+# Run in a fresh interpreter at the temporary directory, with the install as
+# the whole PYTHONPATH; argv: site, the expected kernel build directory, the
+# checkout, the output directory, TEXT, NARROW_TEXT.  Builds the three
+# libraries from the install's csrc/ (timed), then runs the main path at
+# temp 0 and an int8 generate under the launch counters.  The last line is
+# JSON.
+_INSTALLED = r"""
+import dataclasses, json, sys, time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+site, build_dir, root, out_dir = (Path(p) for p in sys.argv[1:5])
+text, narrow_text = sys.argv[5:7]
+assert root not in {Path(p or ".").resolve() for p in sys.path}, sys.path
+import numpy as np
+import torch
+import pocket_tts_tpu_torch as port
+from pocket_tts_tpu_torch.kernels import build, decode_attention as da, flow_blocks as fb
+from pocket_tts_tpu_torch.kernels import qlinear as ql
+from pocket_tts_tpu_torch.runtime.quantize import quantize_model
+assert Path(port.__file__).is_relative_to(site), port.__file__
+assert build.BUILD_DIR == build_dir, (build.BUILD_DIR, build_dir)
+mods = {"flow_blocks": fb, "qlinear": ql, "decode_attention": da}
+assert all(m.SOURCE.is_file() and m.SOURCE.is_relative_to(site) for m in mods.values())
+t0 = time.perf_counter()
+with ThreadPoolExecutor(3) as pool:
+    libs = dict(zip(mods, pool.map(lambda m: str(m.build()), mods.values())))
+out = {"file": port.__file__, "build_s": time.perf_counter() - t0, "libs": libs}
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False  # as phase 1
+model = port.TTSModel.load(eos_threshold=float("inf"), device="cuda")
+model.gen = dataclasses.replace(model.gen, temp=0.0)
+
+
+def counted(m, text, stem):
+    fb.flow_blocks.launches = ql.qlinear.launches = da.decode_attention.launches = 0
+    m.engine.frames_decoded = 0
+    torch.cuda.synchronize()
+    wav = m.generate(text)
+    torch.cuda.synchronize()
+    np.save(out_dir / f"{stem}.npy", wav)
+    return {"frames": m.engine.frames_decoded, "flow_blocks": fb.flow_blocks.launches,
+            "qlinear": ql.qlinear.launches, "decode_attention": da.decode_attention.launches,
+            "lsd": m.gen.lsd_decode_steps, "layers": m.config.flow_lm.transformer.num_layers}
+
+
+out["main"] = counted(model, text, "installed")
+out["int8"] = counted(quantize_model(model, bits=8), narrow_text, "installed_int8")
+out["foreign"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "pocket_tts_tpu"))
+print(json.dumps(out))
+"""
+
+
+def _site_files(site: Path) -> dict:
+    return {p.relative_to(site).as_posix(): (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in site.rglob("*") if p.is_file()}
+
+
+def _install(tmp: Path) -> Path:
+    """The port's wheel built from a copy of this checkout and installed into
+    tmp/site with ``pip install --target``; returns the installed command."""
+    copy_wheel_sources(tmp / "src")
+    pip = [sys.executable, "-m", "pip", "--disable-pip-version-check", "--no-cache-dir"]
+    t0 = time.perf_counter()
+    res = subprocess.run([*pip, "wheel", str(tmp / "src"), "--no-deps", "--no-build-isolation",
+                          "--no-index", "-w", str(tmp / "dist")], cwd=tmp, capture_output=True,
+                         text=True, timeout=600)
+    _require(res.returncode == 0, f"installed: pip wheel exit {res.returncode}\n"
+                                  f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    (wheel,) = (tmp / "dist").glob("*.whl")
+    print(f"installed: pip wheel {wheel.name} ({wheel.stat().st_size / 1e3:.1f} kB) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    res = subprocess.run([*pip, "install", "--no-deps", "--no-index", "--target",
+                          str(tmp / "site"), str(wheel)], cwd=tmp, capture_output=True,
+                         text=True, timeout=600)
+    _require(res.returncode == 0, f"installed: pip install exit {res.returncode}\n"
+                                  f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    script = tmp / "site" / "bin" / "pocket-tts-tpu-torch"
+    _require(script.is_file(), "installed: pip install --target put no pocket-tts-tpu-torch "
+                               "in site/bin")
+    print(f"installed: pip install --target site in {time.perf_counter() - t0:.2f} s")
+    return script
+
+
+def phase_installed(model, ref: dict, smi: str) -> dict:
+    """The port installed from its wheel into a temporary directory; from
+    there, in fresh processes with the install as the whole PYTHONPATH, its
+    kernels built into a fresh cache, phase 4's main path, an int8
+    ``generate`` and the installed command, against this checkout's audio."""
+    import os
+
+    from pocket_tts_tpu_torch import audio as audio_io
+    from pocket_tts_tpu_torch.runtime.quantize import quantize_model
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="installed_port_") as name:
+        tmp = Path(name)
+        site, build_dir = tmp / "site", tmp / "cache" / "pocket_tts_tpu_torch" / "kernels"
+        script = _install(tmp)
+        before = _site_files(site)
+        env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+               "PYTHONPATH": str(site), "XDG_CACHE_HOME": str(tmp / "cache")}
+        proc = subprocess.Popen([sys.executable, "-c", _INSTALLED, str(site), str(build_dir),
+                                 str(Path(__file__).resolve().parent), str(tmp), TEXT,
+                                 NARROW_TEXT], cwd=tmp, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        saved = model.gen
+        try:  # this checkout's audio while the install builds its kernels
+            model.gen = ref["gen"]
+            repeat = model.generate(TEXT)
+            tree_int8 = quantize_model(model, bits=8).generate(NARROW_TEXT)
+            out, err = proc.communicate(timeout=900)
+        finally:
+            model.gen = saved
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        torch.cuda.empty_cache()
+        _require(proc.returncode == 0,
+                 f"installed: exit {proc.returncode}\n{out[-2000:]}\n{err[-4000:]}")
+        run = json.loads(out.strip().splitlines()[-1])
+        for kernel, lib in run["libs"].items():
+            _require(Path(lib).parent == build_dir, f"installed: {kernel} built at {lib}")
+        print(f"installed: {smi}: {', '.join(Path(p).name for p in run['libs'].values())} "
+              f"built from site/pocket_tts_tpu_torch/csrc into cache/pocket_tts_tpu_torch/"
+              f"kernels in {run['build_s']:.2f} s (one nvcc per source, in parallel)")
+        _require(not run["foreign"], f"installed: jax / the JAX package loaded: {run['foreign']}")
+        for what, r in (("main", run["main"]), ("int8", run["int8"])):
+            _require(r["frames"] > 0 and r["flow_blocks"] == r["frames"] * r["lsd"],
+                     f"installed {what}: flow_blocks launches {r['flow_blocks']} != frames "
+                     f"{r['frames']} x {r['lsd']}")
+            _require(r["decode_attention"] == r["frames"] * r["layers"],
+                     f"installed {what}: decode_attention launches {r['decode_attention']} != "
+                     f"frames {r['frames']} x {r['layers']} layers")
+        _require(run["int8"]["qlinear"] > 0, "installed int8: qlinear never launched")
+        _require(run["main"]["qlinear"] == 0, "installed main path: qlinear launched on bf16")
+        print(f"installed: {run['file']} (PYTHONPATH=site, cwd tmp, no jax / pocket_tts_tpu "
+              f"module loaded); main path {run['main']['frames']} frames: flow_blocks "
+              f"{run['main']['flow_blocks']}, decode_attention "
+              f"{run['main']['decode_attention']}, qlinear 0; int8 {run['int8']['frames']} "
+              f"frames: flow_blocks {run['int8']['flow_blocks']}, decode_attention "
+              f"{run['int8']['decode_attention']}, qlinear {run['int8']['qlinear']}")
+        cli = subprocess.run([str(script), "generate", "--temperature", "0", "--eos-threshold",
+                              "inf", "--text", TEXT, "-o", str(tmp / "cli.wav"), "--quiet"],
+                             cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        _require(cli.returncode == 0,
+                 f"installed cli: exit {cli.returncode}\n{cli.stderr[-3000:]}")
+        _require("device: cuda" in cli.stderr, "installed cli: no cuda device line")
+        print(f"installed: site/bin/{script.name} generate --temperature 0 --eos-threshold inf: "
+              f"exit 0")
+        _require(_site_files(site) == before, "installed: files under site changed")
+        cache = sorted(p.name for p in (tmp / "cache").rglob("*") if p.is_file())
+        _require({n for n in cache if n.endswith(".so")}
+                 == {Path(p).name for p in run["libs"].values()},
+                 f"installed: the cache holds {cache}")
+        print(f"installed: nothing written under site ({len(before)} files unchanged); "
+              f"the cache holds {', '.join(cache)}")
+        got = {"generate": (np.load(tmp / "installed.npy"), ref["audio"]),
+               "int8 generate": (np.load(tmp / "installed_int8.npy"), tree_int8),
+               "cli": (_wav_samples((tmp / "cli.wav").read_bytes()), ref["audio"])}
+
+    def pcm(a: np.ndarray) -> np.ndarray:  # float audio as the CLI writes it; a WAV's as read
+        if a.dtype == np.int16:
+            return a.astype(np.int64)
+        return np.frombuffer(audio_io.pcm_i16_le_bytes(a), "<i2").astype(np.int64)
+
+    def gap(a, b) -> int:
+        _require(a.shape == b.shape, f"installed: {a.shape} samples against {b.shape}")
+        return int(np.abs(pcm(a) - pcm(b)).max()) if a.size else 0
+
+    own = gap(ref["audio"], repeat)
+    result = {"build_s": run["build_s"], "own_repeat_lsb": own,
+              "launches": {k: run["main"][k] for k in ("flow_blocks", "decode_attention")}
+              | {"qlinear": run["int8"]["qlinear"]}}
+    # bit for bit: the float32 audio of the installed runs, the CLI's int16 WAV
+    for what, (a, want) in got.items():
+        lsb = gap(a, want)
+        same = bool(np.array_equal(a, want)) if a.dtype == want.dtype else lsb == 0
+        _require(lsb <= REF_TOL_LSB, f"installed {what}: {lsb} int16 LSB from this checkout's")
+        result[what] = {"bit_equal": same, "max_lsb": lsb}
+        print(f"installed: {what} from the install against this checkout's: "
+              f"{'bit for bit' if same else f'max |diff| {lsb} int16 LSB'} (this checkout's "
+              f"own repeat of phase 4's generate: {own} LSB; bound {REF_TOL_LSB})")
+    print(f"installed: phase took {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def _qlinear_entry(narrow: dict, serve: dict, train: dict) -> dict:
     """The kernels line's qlinear entry: the main-path numbers at B = 1 on ff1
     (int8, 4096 x 1024, bf16 x), and every timed shape cold and warm."""
@@ -3760,7 +3995,7 @@ def main() -> None:
     dev = torch.device("cuda")
     kern = phase_kernel(dev)
     dec = phase_decode_kernel(dev)
-    model, launches, attn_main, profile_b1 = phase_main_path(smi)
+    model, launches, attn_main, profile_b1, ref = phase_main_path(smi)
     segment = phase_segment(model, smi)
     phase_reference()
     voice_launches, attn_voice = phase_voice(model)
@@ -3772,6 +4007,7 @@ def main() -> None:
     mesh = phase_mesh(model, dev, smi)
     mesh_launches, mesh_dp2 = mesh["narrow"]["launches"], mesh["f32"]["dp2tp2"]["launches"]
     mesh_bank = phase_mesh_train(model, dev, smi)["bank"]["launches"]
+    installed = phase_installed(model, ref, smi)["launches"]
     per_b = {key: {str(b): kern[b][key] for b in TIMED_BATCHES}
              for key in ("device_us_cold", "device_us_warm", "bound_us", "roofline_share",
                          "graph_plain_us", "graph_plain_us_warm")}
@@ -3790,6 +4026,7 @@ def main() -> None:
         "launches_mesh": mesh_launches["flow_blocks"],
         "launches_mesh_dp2": mesh_dp2["flow_blocks"],
         "launches_mesh_adapters": mesh_bank["flow_blocks"],
+        "launches_installed": installed["flow_blocks"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern[1]["ms"], "plain_ms": kern[1]["plain_ms"],
         "bound_ms": kern[1]["bound_us"] / 1e3, "bound_by": kern[1]["bound_by"],
@@ -3798,7 +4035,8 @@ def main() -> None:
         "ms_b16": kern[16]["ms"], "plain_ms_b16": kern[16]["plain_ms"],
         **per_b,
     }, {**_qlinear_entry(narrow, serve, train), "launches_mesh": mesh_launches["qlinear"],
-        "launches_mesh_adapters": mesh_bank["qlinear"]},
+        "launches_mesh_adapters": mesh_bank["qlinear"],
+        "launches_installed": installed["qlinear"]},
         {**_decode_entry(dec, {
         "main": attn_main, "voice": attn_voice, "batch": batch["attn"],
         "narrow": narrow["generate"]["int8+fp8"]["attn"], "fp8_voice": narrow["voice"]["attn"],
@@ -3807,7 +4045,8 @@ def main() -> None:
         {"b1": profile_b1, "b16": batch["profile"]}, segment["attn"]),
          "launches_mesh": mesh_launches["decode_attention"],
          "launches_mesh_dp2": mesh_dp2["decode_attention"],
-         "launches_mesh_adapters": mesh_bank["decode_attention"]}]}))
+         "launches_mesh_adapters": mesh_bank["decode_attention"],
+         "launches_installed": installed["decode_attention"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

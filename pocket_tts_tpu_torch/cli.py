@@ -515,6 +515,9 @@ def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
+    # the codec's float32 convolutions in full float32, as the port is checked
+    # against its reference (cuDNN's default runs them in TF32)
+    torch.backends.cudnn.allow_tf32 = False
     return args.fn(args)
 
 

@@ -247,11 +247,18 @@ def _yaml_lines(tree: dict, indent: int = 0) -> list[str]:
     return lines
 
 
-def test_port_runs_without_jax_tokenizers_yaml_safetensors():
+def run_no_jax(cwd: Path, env: dict | None = None) -> subprocess.CompletedProcess:
+    """The ``_NO_JAX`` script in a fresh interpreter at ``cwd`` (``env``: the
+    whole environment, None for this process's)."""
     tree = dataclasses.asdict(CFG)
     tree["runtime"]["segment_buckets"] = [64, 200]
     variant = "\n".join(["# the test config as a variant file", *_yaml_lines(tree)]) + "\n"
-    res = subprocess.run([sys.executable, "-c", _NO_JAX, json.dumps(dataclasses.asdict(CFG)),
-                          variant], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    return subprocess.run([sys.executable, "-c", _NO_JAX, json.dumps(dataclasses.asdict(CFG)),
+                           variant], cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_port_runs_without_jax_tokenizers_yaml_safetensors():
+    res = run_no_jax(ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("OK")
