@@ -30,6 +30,13 @@ grad mode are per thread), with one ``torch.Generator`` it owns.  A chunk's
 audio and EOS flags are copied into pinned host buffers when it is
 dispatched, and a CUDA event is recorded after the copies; fetching a chunk
 waits on that event only, so a chunk in flight behind it keeps running.
+
+Spans (``utils.span``; ``/metrics`` exports their totals): ``batcher.queue``
+(a segment's wait from submit, or from its preemption, to admission),
+``batcher.admit`` (its admission and prefill), ``batcher.dispatch`` (one
+chunk's ``decode_frames``; n: lane-frames), ``batcher.route`` (a chunk's
+fetch and routing; n: frames emitted) and ``batcher.idle`` (the loop's poll
+while no slot is active).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import dataclasses
 import logging
 import queue
 import threading
+import time
 from typing import Iterator
 
 import numpy as np
@@ -46,6 +54,7 @@ import torch
 
 from pocket_tts_tpu_torch import pause as pause_mod
 from pocket_tts_tpu_torch import text as text_mod
+from pocket_tts_tpu_torch import utils
 from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams
 from pocket_tts_tpu_torch.tts import TTSModel, VoiceState
 
@@ -71,6 +80,7 @@ class _Segment:
     # request: the one whose first chunk gates time to first audio
     ramp: bool = False
     seq: int = 0  # global submission order (FIFO within a priority class)
+    queued_ns: int = 0  # perf_counter_ns when it joined the admission queue
     # bumped on preemption so stale in-flight chunks stop crediting frames
     epoch: int = 0
     # filled during decode.  Progress lives on the SEGMENT, not the slot: with
@@ -99,6 +109,7 @@ class _Request:
     # [N] adapter-bank row (None = the base model): the request's text
     # prefills and decode run through that adapter's delta on its lane
     lora_row: np.ndarray | None = None
+    span_request: int = 0  # utils.new_request() id of its spans
     segments: list = dataclasses.field(default_factory=list)
     emitted_upto: int = 0  # next segment index to stream out
     finished: bool = False
@@ -305,7 +316,8 @@ class ContinuousBatcher:
             voice = self.model.get_voice_state()
         gen = gen or self.model.gen
         req = _Request(voice=voice, gen=gen, out=queue.Queue(),
-                       latency_sensitive=latency_sensitive, lora_row=lora_row)
+                       latency_sensitive=latency_sensitive, lora_row=lora_row,
+                       span_request=utils.new_request())
         req.out._pocket_request = req  # lets stream() cancel on disconnect
 
         if pauses:
@@ -364,6 +376,7 @@ class ContinuousBatcher:
         # enqueue only after registration so a crash can always fail us open
         for seg in req.segments:
             if seg.kind == "text":
+                seg.queued_ns = time.perf_counter_ns()
                 self._submit.put(seg)
         return req.out
 
@@ -619,6 +632,7 @@ class ContinuousBatcher:
                     victim.chunks.clear()
                     self._stats["preemptions"] += 1
                 slots[victim_i].segment = None
+                victim.queued_ns = time.perf_counter_ns()
                 waiting.append(victim)
                 free.append(victim_i)
             waiting.sort(key=lambda s: (not s.ramp, s.seq))
@@ -634,9 +648,12 @@ class ContinuousBatcher:
                 if seg is None:
                     break
                 slot = slots[i]
-                state = engine.admit_prefill_slot(state, i, seg.request.voice.as_dict(),
-                                                  seg.d_tokens, seg.n_tokens,
-                                                  lora_row=seg.request.lora_row)
+                rid = seg.request.span_request
+                utils.record("batcher.queue", seg.queued_ns, 1, rid)
+                with utils.span("batcher.admit", 1, rid):
+                    state = engine.admit_prefill_slot(state, i, seg.request.voice.as_dict(),
+                                                      seg.d_tokens, seg.n_tokens,
+                                                      lora_row=seg.request.lora_row)
                 if low is not None:
                     low[i] = 0.0 if seg.request.lora_row is None else seg.request.lora_row
                 slot.segment = seg
@@ -655,7 +672,9 @@ class ContinuousBatcher:
             if not active:
                 while pending:
                     self._route(slots, *pending.pop(0), frame_size)
-                if self._stop.wait(0.005):
+                with utils.span("batcher.idle"):
+                    stopped = self._stop.wait(0.005)
+                if stopped:
                     break
                 continue
 
@@ -692,8 +711,9 @@ class ContinuousBatcher:
             vec = {} if default_only else {"lsd_vec": lsd.copy(), "clamp_vec": clamp.copy()}
             if lora_on:
                 vec["lora_w"] = d_low
-            state, audio, is_eos = engine.decode_frames(
-                state, k, gen, self._generator, temps=d_temps, eos_thresholds=d_eos, **vec)
+            with utils.span("batcher.dispatch", k * len(active)):
+                state, audio, is_eos = engine.decode_frames(
+                    state, k, gen, self._generator, temps=d_temps, eos_thresholds=d_eos, **vec)
             host, event = self._to_host(audio, is_eos)
             for s in active:
                 s.dispatched += k
@@ -768,40 +788,43 @@ class ContinuousBatcher:
         frames to the segments that owned each lane AT DISPATCH TIME.
         Returns True if a slot retired (occupancy changed).  An epoch
         mismatch means the owner was preempted after this chunk was
-        dispatched: its lane data is discarded."""
-        if event is not None:
-            event.synchronize()
-        audio = self.engine.wire_to_float(host[0].numpy())
-        eos = host[1].numpy()
-        freed = False
-        with self._lock:
-            touched_requests = set()
-            for i, slot in enumerate(slots):
-                if owners[i] is None:
-                    continue
-                seg, epoch = owners[i]
-                if seg.done or seg.epoch != epoch:
-                    continue
-                if seg.eos_step is None:
-                    hits = np.nonzero(eos[i])[0]
-                    if hits.size:
-                        seg.eos_step = seg.frames_routed + int(hits[0])
-                emit = min(seg.target, seg.frames_routed + k) - seg.frames_routed
-                if emit > 0:
-                    seg.chunks.append(audio[i, : emit * frame_size].copy())
-                    self._stats["useful_frames"] += emit
-                seg.frames_routed += k
-                if seg.frames_routed >= seg.target:
-                    seg.done = True
-                    if slot.segment is seg:  # not already early-retired
-                        slot.segment = None
-                        freed = True
-                touched_requests.add(seg.request)
-            for req in touched_requests:
-                req.pump()
-                if req.finished:
-                    self._active.discard(req)
-                    self._stats["requests_completed"] += 1
+        dispatched: its lane data is discarded.  Span ``batcher.route``
+        (n: frames emitted)."""
+        with utils.span("batcher.route") as span:
+            if event is not None:
+                event.synchronize()
+            audio = self.engine.wire_to_float(host[0].numpy())
+            eos = host[1].numpy()
+            freed = False
+            with self._lock:
+                touched_requests = set()
+                for i, slot in enumerate(slots):
+                    if owners[i] is None:
+                        continue
+                    seg, epoch = owners[i]
+                    if seg.done or seg.epoch != epoch:
+                        continue
+                    if seg.eos_step is None:
+                        hits = np.nonzero(eos[i])[0]
+                        if hits.size:
+                            seg.eos_step = seg.frames_routed + int(hits[0])
+                    emit = min(seg.target, seg.frames_routed + k) - seg.frames_routed
+                    if emit > 0:
+                        seg.chunks.append(audio[i, : emit * frame_size].copy())
+                        self._stats["useful_frames"] += emit
+                        span.n += emit
+                    seg.frames_routed += k
+                    if seg.frames_routed >= seg.target:
+                        seg.done = True
+                        if slot.segment is seg:  # not already early-retired
+                            slot.segment = None
+                            freed = True
+                    touched_requests.add(seg.request)
+                for req in touched_requests:
+                    req.pump()
+                    if req.finished:
+                        self._active.discard(req)
+                        self._stats["requests_completed"] += 1
         return freed
 
 

@@ -13,6 +13,10 @@
 * ``decode_segment`` decodes a whole B = 1 segment with the EOS stop rule:
   the host frame loop stops on EOS flags it reads asynchronously, then the
   codec runs in groups of 64 frames up to the last emitted one.
+* Spans (``utils.span``): ``engine.frames`` around the frame loops of
+  ``decode_frames`` and ``decode_segment`` (n: the frames added to
+  ``frames_decoded``), ``engine.codec`` around their codec decodes (n: the
+  frames decoded).
 * ``admit_slot`` / ``admit_prefill_slot`` install a voice snapshot into one
   lane of a batched state and prefill that lane's text, writing that lane
   only, in place.
@@ -50,6 +54,7 @@ import logging
 import numpy as np
 import torch
 
+from pocket_tts_tpu_torch import utils
 from pocket_tts_tpu_torch.config import Config
 from pocket_tts_tpu_torch.models import flow_lm, flow_mlp, mimi, transformer
 from pocket_tts_tpu_torch.models.mimi import MimiPlans
@@ -624,23 +629,25 @@ class Engine:
         lora_ws = [None if lora_w is None else lora_w[ln].to(d, non_blocking=True)
                    for ln, d in zip(lanes, self._leads)]
         latents, eos_logits = [[] for _ in views], [[] for _ in views]
-        for _ in range(n_frames):
-            noise = flow_lm.sample_noise(generator, (b, self.ldim), temp, clamp, self.device,
-                                         clamped=clamped)
-            for g, v in enumerate(views):
-                v["latent"], eos_logit, _, _, v["pos"] = flow_lm.step(
-                    self._views[g]["flow_lm"], self.cfg, v["kc"], v["vc"], v["pos"],
-                    v["latent"], noise[lanes[g]].to(self._leads[g], non_blocking=True),
-                    tables[g], steps, lsd_vec=lsds[g], lora=None if lora is None else lora[g],
-                    lora_w=lora_ws[g])
-                latents[g].append(v["latent"])
-                eos_logits[g].append(eos_logit)
+        with utils.span("engine.frames", n_frames):
+            for _ in range(n_frames):
+                noise = flow_lm.sample_noise(generator, (b, self.ldim), temp, clamp, self.device,
+                                             clamped=clamped)
+                for g, v in enumerate(views):
+                    v["latent"], eos_logit, _, _, v["pos"] = flow_lm.step(
+                        self._views[g]["flow_lm"], self.cfg, v["kc"], v["vc"], v["pos"],
+                        v["latent"], noise[lanes[g]].to(self._leads[g], non_blocking=True),
+                        tables[g], steps, lsd_vec=lsds[g],
+                        lora=None if lora is None else lora[g], lora_w=lora_ws[g])
+                    latents[g].append(v["latent"])
+                    eos_logits[g].append(eos_logit)
         audio = []
-        for g, v in enumerate(views):
-            denorm = flow_lm.denormalize(self._views[g]["flow_lm"],
-                                         torch.stack(latents[g], dim=1))  # [B, K, ldim]
-            pcm, v["mimi"] = self._codec(g, v["mimi"], denorm)
-            audio.append(pcm)
+        with utils.span("engine.codec", n_frames):
+            for g, v in enumerate(views):
+                denorm = flow_lm.denormalize(self._views[g]["flow_lm"],
+                                             torch.stack(latents[g], dim=1))  # [B, K, ldim]
+                pcm, v["mimi"] = self._codec(g, v["mimi"], denorm)
+                audio.append(pcm)
         self.frames_decoded += n_frames
         self.flow_evals += n_frames * steps
         is_eos = self._on_device([torch.stack(e, dim=-1) for e in eos_logits]) > eos_th
@@ -773,25 +780,28 @@ class Engine:
         eos_step = torch.full((), -1, dtype=torch.int32, device=self.device)
         watch = _EosWatch(self.device, bucket, max_frames, frames_after_eos)
         i = 0
-        while i < watch.stop:
-            noise = flow_lm.sample_noise(generator, (1, self.ldim), gen.temp, gen.noise_clamp,
-                                         self.device)
-            latent, eos_logit, _, _, pos = flow_lm.step(params, self.cfg, kc, vc, pos, latent,
-                                                        noise, table, steps)
-            latents[i].copy_(latent)
-            eos_step = torch.where((eos_logit[0] > gen.eos_threshold) & (eos_step < 0), i,
-                                   eos_step)
-            i += 1
-            watch.after_frame(i, eos_step)
+        with utils.span("engine.frames") as span:
+            while i < watch.stop:
+                noise = flow_lm.sample_noise(generator, (1, self.ldim), gen.temp,
+                                             gen.noise_clamp, self.device)
+                latent, eos_logit, _, _, pos = flow_lm.step(params, self.cfg, kc, vc, pos,
+                                                            latent, noise, table, steps)
+                latents[i].copy_(latent)
+                eos_step = torch.where((eos_logit[0] > gen.eos_threshold) & (eos_step < 0), i,
+                                       eos_step)
+                i += 1
+                watch.after_frame(i, eos_step)
+            span.n = i
         n_valid = watch.finish(i, eos_step)
         self.frames_decoded += i
         self.flow_evals += i * steps
         lat_bct = flow_lm.denormalize(params, latents[:n_valid]).permute(1, 2, 0)  # [1, ldim, n]
         mimi_state, pcm = view["mimi"], []
-        for g, k in self.segment_groups(bucket, n_valid):
-            audio, mimi_state = mimi.decode_step(mimi_params, self.plans, mimi_state,
-                                                 lat_bct[:, :, g:g + k])
-            pcm.append(self._pcm16(audio))
+        with utils.span("engine.codec", n_valid):
+            for g, k in self.segment_groups(bucket, n_valid):
+                audio, mimi_state = mimi.decode_step(mimi_params, self.plans, mimi_state,
+                                                     lat_bct[:, :, g:g + k])
+                pcm.append(self._pcm16(audio))
         audio = (torch.cat(pcm, dim=1) if pcm
                  else torch.zeros((1, 0), dtype=self.wire_dtype, device=self.device))
         new_state = {"kc": kc, "vc": vc, "pos": pos, "latent": latent, "mimi": mimi_state}

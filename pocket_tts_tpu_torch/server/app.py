@@ -51,6 +51,7 @@ from typing import AsyncIterator
 import torch
 
 from pocket_tts_tpu_torch import audio as audio_io
+from pocket_tts_tpu_torch import utils
 from pocket_tts_tpu_torch.server import voices as voices_mod
 from pocket_tts_tpu_torch.tts import TTSModel
 
@@ -339,7 +340,9 @@ async def _pcm_chunks(state: ServerState, model: TTSModel, text: str, voice,
 
 
 def metrics_text(state: ServerState) -> str:
-    """Prometheus text exposition of the serving counters."""
+    """Prometheus text exposition of the serving counters, and of the
+    program's spans (``utils.span_totals``): seconds inside each span name
+    and how many ended, whatever the server's state."""
     lines = ["# TYPE pocket_tts_uptime_seconds gauge",
              f"pocket_tts_uptime_seconds {time.time() - state.started_at:.1f}"]
     if state.batcher is not None:
@@ -353,6 +356,11 @@ def metrics_text(state: ServerState) -> str:
                       f"pocket_tts_useful_ratio {st['useful_ratio']}"]
         lines += ["# TYPE pocket_tts_batcher_dead gauge",
                   f"pocket_tts_batcher_dead {int(st['dead'])}"]
+    totals = utils.span_totals()
+    for key in ("seconds", "count"):
+        lines.append(f"# TYPE pocket_tts_span_{key}_total counter")
+        lines += [f'pocket_tts_span_{key}_total{{span="{name}"}} {t[key]}'
+                  for name, t in sorted(totals.items())]
     return "\n".join(lines) + "\n"
 
 

@@ -27,6 +27,7 @@ import torch
 from pocket_tts_tpu_torch import audio as audio_io
 from pocket_tts_tpu_torch import pause as pause_mod
 from pocket_tts_tpu_torch import text as text_mod
+from pocket_tts_tpu_torch import utils
 from pocket_tts_tpu_torch import weights as weights_mod
 from pocket_tts_tpu_torch.config import (
     DEFAULT_EOS_THRESHOLD,
@@ -377,7 +378,8 @@ class TTSModel:
     def generate_stream(self, text: str, voice_state: VoiceState | None = None,
                         frames_after_eos: int | None = None, *,
                         low_latency: bool = True, continuation_frames: int = 0,
-                        _tail: dict | None = None) -> Iterator[np.ndarray]:
+                        _tail: dict | None = None,
+                        _request: int | None = None) -> Iterator[np.ndarray]:
         """Stream float32 audio chunks.  Text is split into <= 50-token
         sentence chunks; each restarts from the voice state.
         ``low_latency=False`` skips the warm-up chunk ramp; the audio is the
@@ -388,15 +390,19 @@ class TTSModel:
         re-encoded and prefilled on top of the voice state, so prosody
         carries across segment boundaries.  Such segments run one after
         another.  ``_tail`` ({"audio": array}) carries that tail in from and
-        out to the caller (``generate_stream_long`` bridges pauses with it)."""
+        out to the caller (``generate_stream_long`` bridges pauses with it).
+        ``_request``: the span request id of a caller that made one."""
+        request = utils.new_request() if _request is None else _request
         if voice_state is None:
             voice_state = self.get_voice_state()
         chunks = text_mod.split_into_best_sentences(self.tokenizer, text)
         if continuation_frames > 0 and (len(chunks) > 1 or _tail is not None):
             yield from self._run_segments_continuation(
-                chunks, voice_state, frames_after_eos, low_latency, continuation_frames, _tail)
+                chunks, voice_state, frames_after_eos, low_latency, continuation_frames, _tail,
+                request)
         else:
-            yield from self._run_segments(chunks, voice_state, frames_after_eos, low_latency)
+            yield from self._run_segments(chunks, voice_state, frames_after_eos, low_latency,
+                                          request)
 
     def generate_with_pauses(self, text: str, voice_state: VoiceState | None = None, *,
                              continuation_frames: int = 0) -> np.ndarray:
@@ -412,6 +418,7 @@ class TTSModel:
         silence for ``[pause:Xms]`` markers, ellipses and commas.  One
         continuation tail spans the whole utterance, so conditioning carries
         across the pauses."""
+        request = utils.new_request()
         if voice_state is None:
             voice_state = self.get_voice_state()
         tail = {"audio": np.zeros(0, np.float32)} if continuation_frames > 0 else None
@@ -422,11 +429,11 @@ class TTSModel:
             else:
                 yield from self.generate_stream(
                     seg.text, voice_state, frames_after_eos, low_latency=low_latency,
-                    continuation_frames=continuation_frames, _tail=tail)
+                    continuation_frames=continuation_frames, _tail=tail, _request=request)
 
     def _run_segments(self, texts: list[str], voice_state: VoiceState,
-                      frames_after_eos: int | None,
-                      low_latency: bool = True) -> Iterator[np.ndarray]:
+                      frames_after_eos: int | None, low_latency: bool = True,
+                      request: int = 0) -> Iterator[np.ndarray]:
         """Drive the segments with chunks enqueued ahead of the fetches, across
         segment boundaries: the next segment's reset, prefill and first chunks
         are enqueued while the current one drains.  Every chunk depends only on
@@ -449,7 +456,7 @@ class TTSModel:
                     continue
                 if queue and len(active) < max_active:
                     active.append(_SegmentRun(self, queue.pop(0), voice_state,
-                                              frames_after_eos, low_latency))
+                                              frames_after_eos, low_latency, request))
                     continue
                 break
             if not active:
@@ -468,7 +475,8 @@ class TTSModel:
     def _run_segments_continuation(self, texts: list[str], voice_state: VoiceState,
                                    frames_after_eos: int | None, low_latency: bool,
                                    continuation_frames: int,
-                                   tail_holder: dict | None = None) -> Iterator[np.ndarray]:
+                                   tail_holder: dict | None = None,
+                                   request: int = 0) -> Iterator[np.ndarray]:
         """``_run_segments`` with each segment conditioned on the tail of the
         audio so far.  Every segment extends the ORIGINAL voice state, so the
         cache holds at most voice + continuation + text + generation."""
@@ -478,7 +486,7 @@ class TTSModel:
         for text in texts:
             tail = tail_holder["audio"]
             vs = self.extend_voice_state(voice_state, tail) if tail.size else voice_state
-            for out in self._run_segments([text], vs, frames_after_eos, low_latency):
+            for out in self._run_segments([text], vs, frames_after_eos, low_latency, request):
                 tail_holder["audio"] = np.concatenate([tail_holder["audio"], out])[-tail_cap:]
                 yield out
 
@@ -495,45 +503,51 @@ class _SegmentRun:
     reads the oldest chunk's audio and EOS flags (the only host sync),
     applies the stop rule ``min(max_frames, eos_step + frames_after_eos)``
     and truncates overshoot.
+
+    Spans (``utils.span``, under the request id ``request``): ``tts.setup``
+    around the set-up below, ``tts.dispatch`` (n: frames enqueued) and
+    ``tts.fetch`` (n: frames emitted).
     """
 
     def __init__(self, model: TTSModel, chunk_text: str, voice_state: VoiceState,
-                 frames_after_eos: int | None, low_latency: bool = True):
+                 frames_after_eos: int | None, low_latency: bool = True, request: int = 0):
         self.model = model
+        self.request = request
         self.t_start = time.monotonic()
-        prepared, fae_guess = text_mod.prepare_text_prompt(chunk_text)
-        self.frames_after_eos = (fae_guess + 2 if frames_after_eos is None
-                                 else frames_after_eos)
-        max_frames = text_mod.max_generation_frames(prepared)
-        tokens, n_tokens = text_mod.tokens_array(model.tokenizer, prepared)
-        eng = model.engine
-        room = eng._rcfg.max_seq - voice_state.length
-        clipped = max(room - n_tokens - 1, 0)
-        if clipped < max_frames:
-            logger.warning(
-                "voice prompt (%d frames) leaves only %d of %d budgeted "
-                "generation frames in the %d-position cache; audio may cut off",
-                voice_state.length, clipped, max_frames, eng._rcfg.max_seq)
-        self.max_frames = min(max_frames, clipped)
-        state = eng.reset_for_segment(voice_state.as_dict())
-        self.state = eng.prefill_tokens(state, tokens, n_tokens)
-        seed = int(torch.randint(0, 2**62, (1,), generator=model._rng))
-        self.generator = torch.Generator(device=eng.device).manual_seed(seed)
-        self.fused_bucket = None
-        if (not low_latency and self.max_frames and eng._rcfg.segment_dispatch == "auto"
-                and eng._codec_device is None and math.isfinite(model.gen.eos_threshold)):
-            self.fused_bucket = eng.segment_bucket(self.max_frames)
-        if self.fused_bucket is not None:
-            self._schedule = iter([self.fused_bucket])
-        else:
-            self._schedule = iter(eng.chunk_schedule(self.max_frames, low_latency=low_latency))
-        self._next_k = next(self._schedule, None) if self.max_frames else None
-        self.issued = 0
-        self.pending: list[tuple] = []
-        self.frames_done = 0
-        self.eos_step: int | None = None
-        self.total_samples = 0
-        self.done = self.max_frames == 0
+        with utils.span("tts.setup", 1, request):
+            prepared, fae_guess = text_mod.prepare_text_prompt(chunk_text)
+            self.frames_after_eos = (fae_guess + 2 if frames_after_eos is None
+                                     else frames_after_eos)
+            max_frames = text_mod.max_generation_frames(prepared)
+            tokens, n_tokens = text_mod.tokens_array(model.tokenizer, prepared)
+            eng = model.engine
+            room = eng._rcfg.max_seq - voice_state.length
+            clipped = max(room - n_tokens - 1, 0)
+            if clipped < max_frames:
+                logger.warning(
+                    "voice prompt (%d frames) leaves only %d of %d budgeted "
+                    "generation frames in the %d-position cache; audio may cut off",
+                    voice_state.length, clipped, max_frames, eng._rcfg.max_seq)
+            self.max_frames = min(max_frames, clipped)
+            state = eng.reset_for_segment(voice_state.as_dict())
+            self.state = eng.prefill_tokens(state, tokens, n_tokens)
+            seed = int(torch.randint(0, 2**62, (1,), generator=model._rng))
+            self.generator = torch.Generator(device=eng.device).manual_seed(seed)
+            self.fused_bucket = None
+            if (not low_latency and self.max_frames and eng._rcfg.segment_dispatch == "auto"
+                    and eng._codec_device is None and math.isfinite(model.gen.eos_threshold)):
+                self.fused_bucket = eng.segment_bucket(self.max_frames)
+            if self.fused_bucket is not None:
+                self._schedule = iter([self.fused_bucket])
+            else:
+                self._schedule = iter(eng.chunk_schedule(self.max_frames, low_latency=low_latency))
+            self._next_k = next(self._schedule, None) if self.max_frames else None
+            self.issued = 0
+            self.pending: list[tuple] = []
+            self.frames_done = 0
+            self.eos_step: int | None = None
+            self.total_samples = 0
+            self.done = self.max_frames == 0
 
     @property
     def dispatchable(self) -> bool:
@@ -542,19 +556,27 @@ class _SegmentRun:
     def dispatch_one(self) -> None:
         k = self._next_k
         eng = self.model.engine
-        if self.fused_bucket is not None:
-            self.state, audio, n_valid, eos_step = eng.decode_segment(
-                self.state, self.model.gen, self.generator, max_frames=self.max_frames,
-                frames_after_eos=self.frames_after_eos, bucket=k)
-            self.pending.append(("fused", audio, n_valid, eos_step))
-        else:
-            self.state, audio, is_eos = eng.decode_frames(self.state, k, self.model.gen,
-                                                          self.generator)
-            self.pending.append((k, audio, is_eos))
+        with utils.span("tts.dispatch", k, self.request):
+            if self.fused_bucket is not None:
+                self.state, audio, n_valid, eos_step = eng.decode_segment(
+                    self.state, self.model.gen, self.generator, max_frames=self.max_frames,
+                    frames_after_eos=self.frames_after_eos, bucket=k)
+                self.pending.append(("fused", audio, n_valid, eos_step))
+            else:
+                self.state, audio, is_eos = eng.decode_frames(self.state, k, self.model.gen,
+                                                              self.generator)
+                self.pending.append((k, audio, is_eos))
         self.issued += k
         self._next_k = next(self._schedule, None)
 
     def fetch_one(self) -> np.ndarray | None:
+        with utils.span("tts.fetch", 0, self.request) as s:
+            out = self._fetch()
+            if out is not None:
+                s.n = out.size // self.model.frame_size
+        return out
+
+    def _fetch(self) -> np.ndarray | None:
         if self.pending[0][0] == "fused":
             _, audio, n_valid, eos_step = self.pending.pop(0)
             self.eos_step = eos_step if eos_step >= 0 else None

@@ -306,17 +306,6 @@ def jax_leaves(tree, prefix=""):
 # -- utils -----------------------------------------------------------------------
 
 
-def test_step_stats_summary_equals_jax():
-    ours, ref = utils.StepStats(), jutils.StepStats()
-    assert ours.summary() == ref.summary() == {}
-    for ms, frames in ((12.5, 2), (30.25, 16), (101.0, 64), (380.75, 256), (3.0, 1)):
-        ours.record(ms, frames)
-        ref.record(ms, frames)
-    assert ours.total_frames == ref.total_frames == 339
-    assert ours.summary() == ref.summary()
-    ours.log()
-
-
 def test_display_execution_time_sets_elapsed_ms():
     with utils.display_execution_time("block") as t:
         assert t.elapsed_ms == 0.0
