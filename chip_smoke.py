@@ -215,6 +215,25 @@ result line):
    int16 LSB beside its own repeat's, within ``REF_TOL_LSB``.  Each
    kernel's entry of the JSON line gains ``launches_installed``.
 
+14. LFM2-MoE: the benchmark's ``lfm2-8b-a1b-flowlm-bf16`` model at its
+   published widths (24 layers at 2048, 32 experts of 1792 top-4, GQA 32 /
+   8), built as the benchmark builds it (its configuration file, its seeded
+   weights made on the card, the port's own config).  (a) ``moe.route`` and
+   ``moe.experts`` on the model's own MoE layers against ``route_reference`` /
+   ``experts_reference`` at the main path's token counts (M = 1 a frame, 10
+   and 40 a text prefill, 125 a voice prefill), within the tolerances of
+   tests/test_torch_lfm2_cuda.py; ``decode_attention_gqa`` against the plain
+   version on the widened cache (B = 1, S = max_seq, pos 0 / 150 / 511 /
+   1023) within the kernel's error bound.  (b) The counters zeroed just
+   before a ``generate_stream`` of the main path (a cloned voice, one
+   sentence) and read from that run: router launches = MoE layers x (frames
+   decoded + prefills), experts launches twice that, decode_attention
+   launches = frames x attention layers.  (c) Device us of the router, the
+   expert pair and decode attention at M = 1 (cold after an L2 flush, warm
+   back to back, CUDA events), the expert pair's plain gather cold, and each
+   one's bound (bytes once at 3.35 TB/s).  Its kernels join the JSON line.
+   ``python3 chip_smoke.py lfm2`` runs phases 1, 2 and 14 alone.
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
@@ -3989,9 +4008,197 @@ def _decode_entry(dec: dict, attn: dict, profiles: dict, launches_segment: int) 
     }
 
 
+# -- phase 14: the LFM2-MoE backbone at its published widths ---------------------
+
+LFM2_CONFIG = "lfm2-8b-a1b-flowlm-bf16"  # benchmark/configs/<name>.json
+LFM2_SEED = 2024
+LFM2_TOKENS = (1, 10, 40, 125)  # a frame, short and long text prefills, a 10 s voice
+LFM2_POS = (0, 150, 511, 1023)
+LFM2_TEXT = "The lighthouse keeper counted seven ships before the storm."
+
+
+def _lfm2_model(dev):
+    """(configuration, benchmark sizes, costs module, model): the benchmark
+    cell's model, built as ``benchmark/run.py`` builds it."""
+    bench = Path(__file__).resolve().parent / "benchmark"
+    if str(bench) not in sys.path:
+        sys.path.insert(0, str(bench))
+    from harness import costs_lfm2
+    from reference import lfm2_flowlm as lref
+    from systems import lfm2_flowlm_torch as lsys
+
+    cfg = json.loads((bench / "configs" / f"{LFM2_CONFIG}.json").read_text())
+    weights = lref.make_weights(cfg, LFM2_SEED, dev)
+    model = lsys.build(cfg, weights, dev, LFM2_SEED)
+    return cfg, lref.sizes(cfg), costs_lfm2, model
+
+
+def _event_us(fn, n: int, flush=None) -> float:
+    """Mean device us of ``fn(i)`` over n calls by CUDA events: without
+    ``flush`` back to back behind a 5 ms sleep kernel (the host's enqueue
+    stays ahead of the device); with it, each call alone after ``flush()``
+    and a 2 ms sleep kernel, so the call finds L2 cold and the device busy
+    while the host enqueues it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if flush is None:
+        torch.cuda._sleep(5_000_000)
+        start.record()
+        for i in range(n):
+            fn(i)
+        end.record()
+        end.synchronize()
+        return 1000.0 * start.elapsed_time(end) / n
+    total = 0.0
+    for i in range(n):
+        flush()
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn(i)
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return 1000.0 * total / n
+
+
+def phase_lfm2(smi: str) -> list[dict]:
+    """Phase 14; returns the JSON line's entries of the router, the expert
+    pair and grouped-query decode attention."""
+    from pocket_tts_tpu_torch import utils
+    from pocket_tts_tpu_torch.kernels import decode_attention as da
+    from pocket_tts_tpu_torch.kernels import moe
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, s, costs, model = _lfm2_model(dev)
+    eng = model.engine
+    bb = model.config.flow_lm.backbone
+    lfm = eng.params["flow_lm"]["lfm"]
+    n_moe, k = bb.num_hidden_layers - bb.num_dense_layers, bb.num_experts_per_tok
+    print(f"lfm2: {LFM2_CONFIG} built in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB peak")
+    layer = [(lfm["router"][m], lfm["expert_bias"][m], lfm["experts_up"][m],
+              lfm["experts_down"][m]) for m in range(n_moe)]
+    g = torch.Generator(device=dev).manual_seed(LFM2_SEED)
+
+    # (a) the kernels against their plain versions at the main path's shapes
+    for m_tok in LFM2_TOKENS:
+        router, bias, up, down = layer[m_tok % n_moe]
+        x = torch.randn(m_tok, s.d_model, generator=g, device=dev).bfloat16()
+        ids, w = moe.route(x, router, bias, k, bb.norm_topk_prob, bb.routed_scaling_factor)
+        pids, pw = moe.route_reference(x, router, bias, k, bb.norm_topk_prob,
+                                       bb.routed_scaling_factor)
+        same = (ids.sort(-1).values == pids.sort(-1).values).all(-1)
+        w_err = float((w.sort(-1).values[same] - pw.sort(-1).values[same]).abs().max())
+        _require(same.float().mean().item() > 0.99 and w_err <= 1e-5,
+                 f"lfm2: router at M={m_tok}: {int(same.sum())}/{m_tok} same picks, "
+                 f"weights within {w_err:.2e} (1e-5)")
+        y = moe.experts(x, pids, pw, up, down).float()
+        want = torch.cat([moe.experts_reference(x[i:i + 8], pids[i:i + 8], pw[i:i + 8], up,
+                                                down) for i in range(0, m_tok, 8)]).float()
+        # one bf16 ulp where a sum lies near a rounding edge, plus the sum order
+        scale = want.abs().amax(-1, keepdim=True)
+        excess = float(((y - want).abs() - want.abs() * 2 ** -7 - 1e-4 * scale).max())
+        _require(excess <= 0, f"lfm2: experts at M={m_tok} off the plain gather by {excess:.3e} "
+                              "past the bound")
+        print(f"lfm2: M={m_tok}: router {int(same.sum())}/{m_tok} same picks, weights within "
+              f"{w_err:.2e}; experts within the bound (max |diff| "
+              f"{float((y - want).abs().max()):.3e})")
+    hq, hkv, hd = bb.num_attention_heads, bb.num_key_value_heads, bb.head_dim
+    smax = model.config.runtime.max_seq
+    q = torch.randn(1, 1, hq, hd, generator=g, device=dev).bfloat16()
+    kc = torch.randn(1, smax, hkv, hd, generator=g, device=dev).bfloat16()
+    vc = torch.randn(1, smax, hkv, hd, generator=g, device=dev).bfloat16()
+    ke, ve = da.expand_kv(kc, hq), da.expand_kv(vc, hq)
+    for p in LFM2_POS:
+        pos = torch.full((1,), p, dtype=torch.int32, device=dev)
+        got = da.decode_attention_gqa(q, kc, vc, pos)
+        want = da.decode_attention_reference(q, ke, ve, pos)
+        bound = da.error_bound(q, ke, ve, pos, want)
+        _require(bool(((got.double() - want.double()).abs() <= bound).all()),
+                 f"lfm2: decode_attention_gqa at pos {p} past its error bound")
+    print(f"lfm2: decode_attention_gqa B=1 S={smax} {hq}/{hkv} heads at pos {LFM2_POS} "
+          "within its error bound")
+
+    # (b) the counted main path
+    vs = model.get_voice_state_from_audio(_synthetic_voice(10.0, 24000, LFM2_SEED))
+    list(model.generate_stream("Warm up.", vs))
+    torch.cuda.synchronize()
+    moe.route.launches = moe.experts.launches = 0
+    _attn_reset()
+    frames0 = eng.frames_decoded
+    pre0 = utils.span_totals().get("flow_lm.prefill", {}).get("count", 0)
+    t1 = time.perf_counter()
+    audio = np.concatenate([c for c in model.generate_stream(LFM2_TEXT, vs)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    frames = eng.frames_decoded - frames0
+    prefills = utils.span_totals()["flow_lm.prefill"]["count"] - pre0
+    n_attn = len(bb.attn_layers)
+    launches = {"moe_router": moe.route.launches, "moe_experts": moe.experts.launches,
+                "decode_attention": da.decode_attention.launches}
+    _require(frames > 0 and launches["moe_router"] == n_moe * (frames + prefills)
+             and launches["moe_experts"] == 2 * n_moe * (frames + prefills)
+             and launches["decode_attention"] == n_attn * frames,
+             f"lfm2: launches {launches} against {frames} frames and {prefills} prefills")
+    print(f"lfm2: generate_stream [{smi}]: {audio.shape[-1] / 24000:.2f} s of audio in "
+          f"{wall:.2f} s; {frames} frames, {prefills} prefill; launches {launches} = "
+          f"{n_moe} MoE layers x (frames + prefills) (x2 the experts), {n_attn} attention "
+          "layers x frames")
+
+    # (c) device us at M = 1 and the bounds
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.fill_(1)
+
+    x = torch.randn(1, s.d_model, generator=g, device=dev).bfloat16()
+    routes = [moe.route(x, r, b, k) for r, b, _, _ in layer]
+    flush_us = _event_us(lambda i: None, 20, flush)
+    up_b, down_b = costs.moe_one_token_bytes(s)
+    hbm = costs.PEAKS["hbm_bytes_per_s"]
+    experts_cold = _event_us(lambda i: moe.experts(x, *routes[i % n_moe], *layer[i % n_moe][2:]),
+                             2 * n_moe, flush) - flush_us
+    experts_warm = _event_us(lambda i: moe.experts(x, *routes[0], *layer[0][2:]), 2 * n_moe)
+    plain_cold = _event_us(lambda i: moe.experts_reference(x, *routes[i % n_moe],
+                                                           *layer[i % n_moe][2:]),
+                           n_moe, flush) - flush_us
+    router_warm = _event_us(lambda i: moe.route(x, *layer[i % n_moe][:2], k), 2 * n_moe)
+    router_bytes = s.experts * s.d_model * 4 + s.d_model * 2 + s.experts * 4 + k * 8
+    pos = torch.full((1,), 511, dtype=torch.int32, device=dev)
+    attn_cold = _event_us(lambda i: da.decode_attention_gqa(q, kc, vc, pos), 20, flush) - flush_us
+    attn_warm = _event_us(lambda i: da.decode_attention_gqa(q, kc, vc, pos), 20)
+    attn_bytes = 2 * 512 * hkv * hd * 2 + 2 * hq * hd * 2 + 4
+    entries = [
+        {"name": "moe_experts", "route": "cuda", "source": "pocket_tts_tpu_torch/csrc/moe.cu",
+         "replaces": None, "shape": "M=1, 4 of 32 experts, D 2048, F 1792, bf16",
+         "launches_lfm2": launches["moe_experts"], "ms": experts_cold / 1e3,
+         "warm_ms": experts_warm / 1e3, "plain_ms": plain_cold / 1e3,
+         "bound_ms": (up_b + down_b) / hbm * 1e3, "bound_by": "bytes", "library_ms": None},
+        {"name": "moe_router", "route": "cuda", "source": "pocket_tts_tpu_torch/csrc/moe.cu",
+         "replaces": None, "shape": "M=1, 32 experts, D 2048, f32 gate",
+         "launches_lfm2": launches["moe_router"], "warm_ms": router_warm / 1e3,
+         "bound_ms": router_bytes / hbm * 1e3, "bound_by": "bytes"},
+        {"name": "decode_attention_gqa", "route": "cuda",
+         "source": "pocket_tts_tpu_torch/csrc/decode_attention.cu",
+         "shape": f"B=1, S {smax}, {hq}/{hkv} heads, D {hd}, bf16 cache, pos 511",
+         "launches_lfm2": launches["decode_attention"], "ms": attn_cold / 1e3,
+         "warm_ms": attn_warm / 1e3, "bound_ms": attn_bytes / hbm * 1e3, "bound_by": "bytes"}]
+    for e in entries:
+        print(f"lfm2: {e['name']} [{smi}]: " + ", ".join(
+            f"{key} {e[key]:.6f}" for key in ("ms", "warm_ms", "plain_ms", "bound_ms") if key in e))
+    del model, eng, lfm, layer, routes, scratch
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main() -> None:
     kind, smi = phase_environment()
     phase_build()
+    if sys.argv[1:] == ["lfm2"]:
+        print(json.dumps({"kernels": phase_lfm2(smi)}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
     dev = torch.device("cuda")
     kern = phase_kernel(dev)
     dec = phase_decode_kernel(dev)
@@ -4008,6 +4215,9 @@ def main() -> None:
     mesh_launches, mesh_dp2 = mesh["narrow"]["launches"], mesh["f32"]["dp2tp2"]["launches"]
     mesh_bank = phase_mesh_train(model, dev, smi)["bank"]["launches"]
     installed = phase_installed(model, ref, smi)["launches"]
+    del model
+    torch.cuda.empty_cache()
+    lfm2 = phase_lfm2(smi)
     per_b = {key: {str(b): kern[b][key] for b in TIMED_BATCHES}
              for key in ("device_us_cold", "device_us_warm", "bound_us", "roofline_share",
                          "graph_plain_us", "graph_plain_us_warm")}
@@ -4046,7 +4256,7 @@ def main() -> None:
          "launches_mesh": mesh_launches["decode_attention"],
          "launches_mesh_dp2": mesh_dp2["decode_attention"],
          "launches_mesh_adapters": mesh_bank["decode_attention"],
-         "launches_installed": installed["decode_attention"]}]}))
+         "launches_installed": installed["decode_attention"]}, *lfm2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -58,6 +58,78 @@ class LookupTableConfig:
     tokenizer_path: str = ""
 
 
+LFM2_LAYER_KINDS = ("conv", "full_attention")
+
+
+@dataclasses.dataclass(frozen=True)
+class BackboneConfig:
+    """A hybrid FlowLM backbone in place of Pocket's transformer; the one
+    kind is ``lfm2_moe`` (LiquidAI's LFM2-MoE, ``models/lfm2.py``), its
+    fields named as in that model's ``config.json`` and its defaults those
+    of LFM2-8B-A1B.  ``layer_types`` gives each layer's mixer: a gated short
+    convolution of ``conv_L_cache`` taps (``conv``) or GQA attention with
+    RMSNorm on q and k and RoPE of base ``rope_theta`` (``full_attention``);
+    the first ``num_dense_layers`` layers have a SwiGLU FFN of
+    ``intermediate_size``, the others ``num_experts`` SwiGLU experts of
+    ``moe_intermediate_size``, ``num_experts_per_tok`` a token, chosen on
+    sigmoid scores plus ``expert_bias``."""
+
+    kind: str = "lfm2_moe"
+    hidden_size: int = 2048
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    layer_types: tuple[str, ...] = tuple(
+        "full_attention" if i in (2, 6, 10, 14, 18, 21) else "conv" for i in range(24))
+    conv_L_cache: int = 3
+    conv_bias: bool = False
+    intermediate_size: int = 7168
+    moe_intermediate_size: int = 1792
+    num_experts: int = 32
+    num_experts_per_tok: int = 4
+    num_dense_layers: int = 2
+    norm_eps: float = 1e-5
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    use_expert_bias: bool = True
+    rope_theta: float = 1000000.0
+
+    def __post_init__(self):
+        if self.kind != "lfm2_moe":
+            raise ValueError(f"flow_lm.backbone.kind must be 'lfm2_moe', got {self.kind!r}")
+        if len(self.layer_types) != self.num_hidden_layers or not set(
+                self.layer_types) <= set(LFM2_LAYER_KINDS):
+            raise ValueError(f"flow_lm.backbone.layer_types: {self.num_hidden_layers} entries "
+                             f"of {LFM2_LAYER_KINDS}, got {self.layer_types!r}")
+        if self.conv_bias:
+            raise ValueError("flow_lm.backbone: conv_bias is not supported (LFM2's is False)")
+        if self.num_attention_heads % self.num_key_value_heads or \
+                self.hidden_size % self.num_attention_heads:
+            raise ValueError("flow_lm.backbone: heads must divide hidden_size and kv heads the "
+                             "query heads")
+        if not 0 < self.num_dense_layers < self.num_hidden_layers or len(
+                set(self.layer_types)) < 2 or not 1 <= self.num_experts_per_tok <= self.num_experts:
+            raise ValueError("flow_lm.backbone: the port takes at least one layer of each kind "
+                             "(conv and attention mixers, dense and MoE FFNs) and 1 <= "
+                             "num_experts_per_tok <= num_experts")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def attn_layers(self) -> tuple[int, ...]:
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "full_attention")
+
+    @property
+    def conv_layers(self) -> tuple[int, ...]:
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "conv")
+
+    @property
+    def moe_layers(self) -> int:
+        return self.num_hidden_layers - self.num_dense_layers
+
+
 @dataclasses.dataclass(frozen=True)
 class FlowLMConfig:
     dtype: str = "float32"
@@ -65,6 +137,28 @@ class FlowLMConfig:
     transformer: TransformerConfig = dataclasses.field(default_factory=TransformerConfig)
     lookup_table: LookupTableConfig = dataclasses.field(default_factory=LookupTableConfig)
     weights_path: str | None = None
+    backbone = None  # Pocket's transformer; see HybridFlowLMConfig (not a field here)
+
+    @property
+    def d_model(self) -> int:
+        return self.backbone.hidden_size if self.backbone else self.transformer.d_model
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridFlowLMConfig(FlowLMConfig):
+    """A FlowLM whose backbone is ``backbone`` in place of ``transformer``
+    (which it leaves unread).  A subclass, so that the flagship's
+    ``FlowLMConfig`` keeps the JAX package's fields, one for one."""
+
+    backbone: BackboneConfig | None = None
+
+
+def refuse_hybrid(cfg, what: str) -> None:
+    """ValueError naming the backbone kind when ``cfg`` has a hybrid backbone,
+    which ``what`` does not support."""
+    if cfg.flow_lm.backbone is not None:
+        raise ValueError(f"{what} does not support the {cfg.flow_lm.backbone.kind} FlowLM "
+                         "backbone (Pocket's transformer only)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,7 +342,7 @@ _VARIANTS = {"b6369a24": _b6369a24}
 
 _NESTED = {"flow": FlowConfig, "lookup_table": LookupTableConfig, "seanet": SEANetConfig,
            "quantizer": QuantizerConfig, "flow_lm": FlowLMConfig, "mimi": MimiConfig,
-           "runtime": RuntimeConfig}
+           "runtime": RuntimeConfig, "backbone": BackboneConfig}
 
 
 def config_from_dict(data: dict, cls=Config):
@@ -261,8 +355,10 @@ def config_from_dict(data: dict, cls=Config):
         if name not in names:
             continue
         if name == "transformer":
-            sub = TransformerConfig if cls is FlowLMConfig else MimiTransformerConfig
+            sub = TransformerConfig if issubclass(cls, FlowLMConfig) else MimiTransformerConfig
             value = config_from_dict(value, sub)
+        elif name == "flow_lm" and isinstance(value, dict) and value.get("backbone"):
+            value = config_from_dict(value, HybridFlowLMConfig)
         elif name in _NESTED and isinstance(value, dict):
             value = config_from_dict(value, _NESTED[name])
         elif isinstance(value, list):

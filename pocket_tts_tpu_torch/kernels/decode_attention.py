@@ -347,6 +347,42 @@ decode_attention.launches = 0
 decode_attention.large_t = 0
 
 
+def expand_kv(cache: torch.Tensor, heads: int) -> torch.Tensor:
+    """A cache [B, S, Hkv, D] widened to ``heads`` query heads (query head h
+    reads KV head h // (heads / Hkv), LFM2's and Llama's ``repeat_kv``)."""
+    b, s, hkv, d = cache.shape
+    return cache[:, :, :, None].expand(b, s, hkv, heads // hkv, d).reshape(b, s, heads, d)
+
+
+def decode_attention_gqa(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         pos: torch.Tensor) -> torch.Tensor:
+    """:func:`decode_attention` of q [B, 1, Hq, D] against caches [B, S, Hkv,
+    D] with Hq = r Hkv (grouped-query attention), through the same kernel
+    and its plain version on the CPU.
+
+    The kernel takes a query's batch and head strides and the caches' batch
+    stride, so no cache is copied.  At B = 1 the r query heads of each KV
+    head become r rows of the batch, all reading the one cache (batch stride
+    0): one launch over [r, 1, Hkv, D].  At B > 1 the r query heads j, j + r,
+    ... of every KV head go through r launches, q's head stride r D.  Either
+    way every KV head's rows are read by r CTAs or clusters in the same
+    launch or in consecutive ones: the first read comes from HBM and the
+    other r - 1 from L2 (a layer's cache, 2 MB at S 1024 in bf16, fits the
+    50 MB L2), so device memory serves each KV head once."""
+    b, _, hq, d = q.shape
+    hkv = k_cache.shape[2]
+    r = hq // hkv
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, expand_kv(k_cache, hq), expand_kv(v_cache, hq), pos)
+    if b == 1:
+        qg = q[0, 0].view(hkv, r, d).transpose(0, 1).unsqueeze(1)  # [r, 1, Hkv, D]
+        out = decode_attention(qg, k_cache.expand(r, -1, -1, -1), v_cache.expand(r, -1, -1, -1),
+                               pos.expand(r).contiguous())
+        return out[:, 0].transpose(0, 1).reshape(1, 1, hq, d)
+    outs = [decode_attention(q[:, :, j::r], k_cache, v_cache, pos) for j in range(r)]
+    return torch.stack(outs, dim=3).reshape(b, 1, hq, d)
+
+
 def count_large_t() -> None:
     """One more T > 1 call on CUDA, sent to the plain ``sdpa`` by the shape
     rule of ``ops.attention.causal_cache_attention``."""

@@ -36,7 +36,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from pocket_tts_tpu_torch.kernels.decode_attention import count_large_t, decode_attention
+from pocket_tts_tpu_torch.kernels.decode_attention import (
+    count_large_t,
+    decode_attention,
+    decode_attention_gqa,
+    expand_kv,
+)
 from pocket_tts_tpu_torch.ops.sdpa import FP8_DTYPES, sdpa
 
 
@@ -76,14 +81,19 @@ def prefill_write(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
 def causal_cache_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                            pos: torch.Tensor) -> torch.Tensor:
     """Causal attention of ``q`` [B,T,H,D] (absolute positions ``pos + i``)
-    against the cache [B,S,H,D] (new keys already written at ``pos..``).
-    T = 1 (a decode frame) goes to :func:`decode_attention`: the kernel on
-    CUDA, the plain version on the CPU."""
-    t = q.shape[1]
+    against the cache [B,S,H,D] (new keys already written at ``pos..``), or
+    [B,S,Hkv,D] with H a multiple of Hkv (grouped-query attention).
+    T = 1 (a decode frame) goes to :func:`decode_attention` (or
+    :func:`decode_attention_gqa`): the kernel on CUDA, the plain version on
+    the CPU."""
+    t, heads = q.shape[1], q.shape[2]
+    gqa = k_cache.shape[2] != heads  # grouped-query attention (the LFM2 backbone)
     if t == 1:
-        return decode_attention(q, k_cache, v_cache, pos)
+        return (decode_attention_gqa if gqa else decode_attention)(q, k_cache, v_cache, pos)
     if q.device.type == "cuda":
         count_large_t()
+    if gqa:
+        k_cache, v_cache = expand_kv(k_cache, heads), expand_kv(v_cache, heads)
     s = k_cache.shape[1]
     q_pos = pos.long()[:, None] + torch.arange(t, device=q.device)[None, :]  # [B,T]
     key_idx = torch.arange(s, device=q.device)[None, None, :]

@@ -17,6 +17,12 @@
   ``decode_frames`` and ``decode_segment`` (n: the frames added to
   ``frames_decoded``), ``engine.codec`` around their codec decodes (n: the
   frames decoded).
+* A hybrid FlowLM backbone (``cfg.flow_lm.backbone``, LFM2-MoE): the state
+  carries the conv state ``cs`` [Lc, B, D, taps - 1] beside the attention
+  layers' KV cache, and every function that builds, copies, admits or
+  prefills a state carries it; ``expert_slots`` [MoE layers, experts]
+  counts the routed token-slots on the device (read only by whoever reads
+  it).  The adapter bank and the mesh refuse such a backbone.
 * ``admit_slot`` / ``admit_prefill_slot`` install a voice snapshot into one
   lane of a batched state and prefill that lane's text, writing that lane
   only, in place.
@@ -55,8 +61,8 @@ import numpy as np
 import torch
 
 from pocket_tts_tpu_torch import utils
-from pocket_tts_tpu_torch.config import Config
-from pocket_tts_tpu_torch.models import flow_lm, flow_mlp, mimi, transformer
+from pocket_tts_tpu_torch.config import Config, refuse_hybrid
+from pocket_tts_tpu_torch.models import flow_lm, flow_mlp, lfm2, mimi, transformer
 from pocket_tts_tpu_torch.models.mimi import MimiPlans
 from pocket_tts_tpu_torch.ops import mulaw
 from pocket_tts_tpu_torch.ops.attention import raw_view
@@ -83,6 +89,9 @@ SEGMENT_POLL = 4
 SEGMENT_MAX_LAG = 12
 # frames per codec decode of a fused segment (the JAX package's group)
 CODEC_GROUP = 64
+# the backbone's state in a state dict: the KV cache, and a hybrid backbone's
+# conv state; each [layers, B, ...]
+BACKBONE_STATE = ("kc", "vc", "cs")
 
 
 def _bucket(n: int, buckets: tuple[int, ...]) -> int:
@@ -167,8 +176,14 @@ def place_params(params: dict, device: torch.device, dtype: torch.dtype,
         return leaf
 
     narrow = ("tf", "input_w", "text_embed")
-    fl = {k: _map(v, cast(dtype if k in narrow else torch.float32))
-          for k, v in params["flow_lm"].items()}
+
+    def place(k, v):
+        if k == "lfm":  # the hybrid backbone: its products and norms narrow, the rest f32
+            return lfm2.LayerStacks({n: cast(dtype if n in lfm2.NARROW else torch.float32)(t)
+                                     for n, t in v.items()})
+        return _map(v, cast(dtype if k in narrow else torch.float32))
+
+    fl = {k: place(k, v) for k, v in params["flow_lm"].items()}
     fl["flow"]["blocks"] = {k: v.dequant() if isinstance(v, QTensor) else v
                             for k, v in fl["flow"]["blocks"].items()}
     return {"flow_lm": fl, "mimi": _map(params["mimi"], cast(codec_dtype))}
@@ -187,7 +202,9 @@ class Engine:
                  batch_size: int = 1, mesh: Mesh | None = None):
         self.cfg = cfg
         self.mesh = mesh
+        self._bb = cfg.flow_lm.backbone
         if mesh is not None:
+            refuse_hybrid(cfg, "the dp x tp mesh")
             lead = mesh.devices[0, 0]
             if device is not None and torch.device(device) != lead:
                 raise ValueError(f"Engine: device {device} is not the mesh's first device {lead}")
@@ -230,6 +247,9 @@ class Engine:
         # and the flow-net evaluations they ran (each one flow_blocks call)
         self.frames_decoded = 0
         self.flow_evals = 0
+        # a hybrid backbone's routed token-slots per MoE layer and expert (device)
+        self.expert_slots = None if self._bb is None else torch.zeros(
+            (self._bb.moe_layers, self._bb.num_experts), dtype=torch.int64, device=self.device)
         self._fresh_mimi1 = None  # read-only fresh B = 1 codec state (admission)
         self.adapter_bank = None  # set_adapter_bank
         self._lora_stacks = None
@@ -252,6 +272,7 @@ class Engine:
         A_r^T) B^T = (x A^T) B^T``.  Dispatches opt in with a per-slot row
         (``decode_frames(lora_w=)``, ``admit_prefill_slot(lora_row=)``);
         those without one keep the plain path."""
+        refuse_hybrid(self.cfg, "the adapter bank")
         self.adapter_bank = bank
         stacks = {k: {n: torch.as_tensor(t).float() for n, t in f.items()}
                   for k, f in bank.stacks.items()}
@@ -309,11 +330,16 @@ class Engine:
         """Empty state of ``batch`` lanes (default: the engine's batch size):
         zero cache, cursor 0; placed by ``shard_state`` on a mesh."""
         batch = batch or self.batch
-        tcfg = self._tcfg
-        kc, vc = transformer.init_cache(tcfg.num_layers, batch, self._rcfg.max_seq,
-                                        tcfg.num_heads, tcfg.head_dim, self.kv_dtype,
-                                        self.device)
-        state = {"kc": kc, "vc": vc,
+        if self._bb is not None:
+            cache = lfm2.init_state(self._bb, batch, self._rcfg.max_seq, self.kv_dtype,
+                                    self.dtype, self.device)
+        else:
+            tcfg = self._tcfg
+            kc, vc = transformer.init_cache(tcfg.num_layers, batch, self._rcfg.max_seq,
+                                            tcfg.num_heads, tcfg.head_dim, self.kv_dtype,
+                                            self.device)
+            cache = {"kc": kc, "vc": vc}
+        state = {**cache,
                  "pos": torch.zeros((batch,), dtype=torch.int32, device=self.device),
                  **self._fresh_decode_state(batch)}
         return state if self.mesh is None else self._shard(state)
@@ -376,7 +402,7 @@ class Engine:
         if self.mesh is not None:
             vs = gather({k: voice_state[k] for k in ("kc", "vc", "pos")}, self.device)
             return self._shard({**vs, **self._fresh_decode_state(vs["pos"].shape[0])})
-        return {"kc": _clone(voice_state["kc"]), "vc": _clone(voice_state["vc"]),
+        return {**{k: _clone(voice_state[k]) for k in BACKBONE_STATE if k in voice_state},
                 "pos": voice_state["pos"].clone(), **self._fresh_decode_state()}
 
     # -- slot admission (continuous batching) --------------------------------
@@ -405,8 +431,9 @@ class Engine:
                 raw_view(d).narrow(lane_axis, lane.start, 1).copy_(raw_view(piece),
                                                                    non_blocking=True)
 
-        for name in ("kc", "vc"):  # [L, B, ...]
-            install(view[name], voice_state[name], 1)
+        for name in BACKBONE_STATE:  # [L, B, ...]
+            if name in view:
+                install(view[name], voice_state[name], 1)
         install(view["pos"], voice_state["pos"], 0)
         install(view["latent"], self._views[g]["flow_lm"]["bos_emb"], 0)
         fresh, dec = self._fresh_mimi1, view["mimi"]
@@ -447,22 +474,27 @@ class Engine:
         t_valid = torch.full((1,), n_tokens, dtype=torch.int32, device=dev)
         _, _, new_pos = flow_lm.prefill(params, self.cfg, cut(view["kc"]), cut(view["vc"]),
                                         view["pos"][lane], emb, t_valid,
-                                        None if lora is None else lora[g], lora_w)
+                                        None if lora is None else lora[g], lora_w,
+                                        cs=view["cs"][:, lane] if "cs" in view else None,
+                                        slots=self.expert_slots, positions=n_tokens)
         view["pos"][lane].copy_(new_pos)
         return state
 
     # -- prefill -----------------------------------------------------------
 
-    def _prefill(self, state: dict, emb: torch.Tensor, t_valid: torch.Tensor) -> dict:
-        """``flow_lm.prefill`` of ``emb`` [B, T, E] (``t_valid`` [B]), each dp
-        group's lanes on its own devices."""
+    def _prefill(self, state: dict, emb: torch.Tensor, t_valid: torch.Tensor,
+                 positions: int) -> dict:
+        """``flow_lm.prefill`` of ``emb`` [B, T, E] (``t_valid`` [B], the sum
+        of which is ``positions``, on the host), each dp group's lanes on its
+        own devices."""
         views = self._groups(state)
         per_group = emb.shape[0] // len(views)
         for g, v in enumerate(views):
             lanes, dev = slice(g * per_group, (g + 1) * per_group), self._leads[g]
             v["kc"], v["vc"], v["pos"] = flow_lm.prefill(
                 self._views[g]["flow_lm"], self.cfg, v["kc"], v["vc"], v["pos"],
-                emb[lanes].to(dev, non_blocking=True), t_valid[lanes].to(dev, non_blocking=True))
+                emb[lanes].to(dev, non_blocking=True), t_valid[lanes].to(dev, non_blocking=True),
+                cs=v.get("cs"), slots=self.expert_slots, positions=positions)
         return self._join(state, views)
 
     def prefill_tokens(self, state: dict, tokens: np.ndarray,
@@ -483,14 +515,14 @@ class Engine:
             counts = np.full((b,), counts, np.int32)
         elif counts.shape != (b,):
             raise ValueError(f"prefill_tokens: n_valid of shape {counts.shape} for {b} lanes")
-        return self._prefill(state, emb, self.put(counts, torch.int32))
+        return self._prefill(state, emb, self.put(counts, torch.int32), int(counts.sum()))
 
     def prefill_conditioning(self, state: dict, cond: torch.Tensor, n_valid: int) -> dict:
         """Prefill the first ``n_valid`` frames of speaker conditioning
         ``cond`` [B, T, d_model] (float32; cast here to the backbone dtype)."""
         b = cond.shape[0]
         t_valid = torch.full((b,), n_valid, dtype=torch.int32, device=self.device)
-        return self._prefill(state, cond.to(self.device, self.dtype), t_valid)
+        return self._prefill(state, cond.to(self.device, self.dtype), t_valid, b * n_valid)
 
     # -- voice encoding ----------------------------------------------------
 
@@ -638,7 +670,8 @@ class Engine:
                         self._views[g]["flow_lm"], self.cfg, v["kc"], v["vc"], v["pos"],
                         v["latent"], noise[lanes[g]].to(self._leads[g], non_blocking=True),
                         tables[g], steps, lsd_vec=lsds[g],
-                        lora=None if lora is None else lora[g], lora_w=lora_ws[g])
+                        lora=None if lora is None else lora[g], lora_w=lora_ws[g],
+                        cs=v.get("cs"), slots=self.expert_slots)
                     latents[g].append(v["latent"])
                     eos_logits[g].append(eos_logit)
         audio = []
@@ -785,7 +818,9 @@ class Engine:
                 noise = flow_lm.sample_noise(generator, (1, self.ldim), gen.temp,
                                              gen.noise_clamp, self.device)
                 latent, eos_logit, _, _, pos = flow_lm.step(params, self.cfg, kc, vc, pos,
-                                                            latent, noise, table, steps)
+                                                            latent, noise, table, steps,
+                                                            cs=view.get("cs"),
+                                                            slots=self.expert_slots)
                 latents[i].copy_(latent)
                 eos_step = torch.where((eos_logit[0] > gen.eos_threshold) & (eos_step < 0), i,
                                        eos_step)
@@ -804,7 +839,8 @@ class Engine:
                 pcm.append(self._pcm16(audio))
         audio = (torch.cat(pcm, dim=1) if pcm
                  else torch.zeros((1, 0), dtype=self.wire_dtype, device=self.device))
-        new_state = {"kc": kc, "vc": vc, "pos": pos, "latent": latent, "mimi": mimi_state}
+        new_state = {**{k: view[k] for k in BACKBONE_STATE if k in view}, "pos": pos,
+                     "latent": latent, "mimi": mimi_state}
         return self._join(state, [new_state]), audio, n_valid, watch.eos_step
 
     def chunk_schedule(self, max_frames: int, low_latency: bool = True) -> list[int]:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from pocket_tts_tpu_torch import weights as weights_mod
+from pocket_tts_tpu_torch.config import refuse_hybrid
 from pocket_tts_tpu_torch.ops.qtensor import STACKED_WEIGHTS, QTensor, map_with_path, quantize_tree
 from pocket_tts_tpu_torch.runtime.engine import Engine
 from pocket_tts_tpu_torch.tts import TTSModel
@@ -130,7 +131,9 @@ def load_quantized(path: str | Path) -> dict:
 def quantize_model(model: TTSModel, bits: int = 8) -> TTSModel:
     """A clone of ``model`` on int8 (or int4) weights, with its own
     ``Engine``: the float32 ``model.params`` are quantized (never the
-    engine's bf16 copy, which would give other levels)."""
+    engine's bf16 copy, which would give other levels).  A hybrid FlowLM
+    backbone raises ValueError."""
+    refuse_hybrid(model.config, "weight quantization")
     qparams = quantize_params(model.params, bits=bits)
     n_q = sum(isinstance(leaf, QTensor) for _, leaf in _flatten_paths(qparams))
     logger.info("quantized %d weight tensors to int%d", n_q, bits)

@@ -340,9 +340,11 @@ async def _pcm_chunks(state: ServerState, model: TTSModel, text: str, voice,
 
 
 def metrics_text(state: ServerState) -> str:
-    """Prometheus text exposition of the serving counters, and of the
-    program's spans (``utils.span_totals``): seconds inside each span name
-    and how many ended, whatever the server's state."""
+    """Prometheus text exposition of the serving counters, of a hybrid
+    backbone's routed token-slots per MoE layer and expert (the model's
+    engine and the batcher's, added), and of the program's spans
+    (``utils.span_totals``): seconds inside each span name and how many
+    ended, whatever the server's state."""
     lines = ["# TYPE pocket_tts_uptime_seconds gauge",
              f"pocket_tts_uptime_seconds {time.time() - state.started_at:.1f}"]
     if state.batcher is not None:
@@ -356,6 +358,13 @@ def metrics_text(state: ServerState) -> str:
                       f"pocket_tts_useful_ratio {st['useful_ratio']}"]
         lines += ["# TYPE pocket_tts_batcher_dead gauge",
                   f"pocket_tts_batcher_dead {int(st['dead'])}"]
+    engines = [state.model.engine] + ([state.batcher.engine] if state.batcher else [])
+    slots = [e.expert_slots for e in engines if getattr(e, "expert_slots", None) is not None]
+    if slots:  # a hybrid backbone's routed token-slots (read here, off the frame loop)
+        total = sum(s.cpu() for s in slots)
+        lines.append("# TYPE pocket_tts_expert_slots_total counter")
+        lines += [f'pocket_tts_expert_slots_total{{layer="{m}",expert="{e}"}} {int(n)}'
+                  for m, row in enumerate(total.tolist()) for e, n in enumerate(row)]
     totals = utils.span_totals()
     for key in ("seconds", "count"):
         lines.append(f"# TYPE pocket_tts_span_{key}_total counter")

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from pocket_tts_tpu_torch import weights as weights_mod
+from pocket_tts_tpu_torch.config import refuse_hybrid
 from pocket_tts_tpu_torch.ops.qtensor import QTensor, map_with_path
 from pocket_tts_tpu_torch.parallel.mesh import Sharded, replicas
 from pocket_tts_tpu_torch.runtime.quantize import _flatten_paths
@@ -122,7 +123,9 @@ def make_lora_train_step(cfg, optimizer, *, alpha: float, rank: int, eos_weight:
     ``base`` is never written.  ``opt_state`` is ``optimizer.init(lora)``.
     On a mesh ``base`` is placed by ``mesh.shard_params``, ``lora`` by
     ``mesh.shard_trainable`` (replicated: each factor's gradient reaches its
-    one master) and the batch by ``trainer.shard_batch``."""
+    one master) and the batch by ``trainer.shard_batch``.  A hybrid FlowLM
+    backbone raises ValueError."""
+    refuse_hybrid(cfg, "LoRA training")
     from pocket_tts_tpu_torch.training.loss import flow_matching_loss
     from pocket_tts_tpu_torch.training.trainer import _update
 
@@ -252,6 +255,7 @@ def apply_lora(model, path):
     dense path, no per-step adapter cost)."""
     from pocket_tts_tpu_torch.training.trainer import _adapted_clone
 
+    refuse_hybrid(model.config, "LoRA")
     lora, rank, alpha = load_lora_params(path)
     return _adapted_clone(model, merge_lora(model.params["flow_lm"], lora, alpha=alpha,
                                             rank=rank))

@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pocket_tts_tpu_torch.config import Config
+from pocket_tts_tpu_torch.config import Config, refuse_hybrid
 from pocket_tts_tpu_torch.kernels.flow_blocks import flow_blocks_reference
 from pocket_tts_tpu_torch.models import flow_mlp, transformer
 from pocket_tts_tpu_torch.models.flow_lm import embed_text, speaker_project
@@ -221,6 +221,7 @@ def flow_matching_loss(params: dict, cfg: Config, batch: dict,
     masked mean over the whole batch: the groups' numerators and
     denominators are added on the lead in group order (``mesh.reduce_sum``),
     then divided once."""
+    refuse_hybrid(cfg, "training")
     views, batches = _groups(params, batch)
     dev = views[0]["out_eos_w"].device
     lanes = [batch_["latents"].shape[0] for batch_ in batches]

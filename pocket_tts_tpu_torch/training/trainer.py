@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from pocket_tts_tpu_torch import weights as weights_mod
-from pocket_tts_tpu_torch.config import Config
+from pocket_tts_tpu_torch.config import Config, refuse_hybrid
 from pocket_tts_tpu_torch.ops.qtensor import QTensor
 from pocket_tts_tpu_torch.parallel.mesh import (
     Mesh,
@@ -140,7 +140,9 @@ def make_train_step(cfg: Config, optimizer: Optimizer, *, eos_weight: float = 1.
     """``train_step(params, opt_state, batch, generator=None, *, draws=None)
     -> (params, opt_state, metrics)`` over the FlowLM subtree, updated in
     place (``opt_state = optimizer.init(params)``).  ``draws``: the loss's
-    pre-sampled noise, else drawn from ``generator``."""
+    pre-sampled noise, else drawn from ``generator``.  A hybrid FlowLM
+    backbone raises ValueError."""
+    refuse_hybrid(cfg, "training")
 
     def train_step(params: dict, opt_state: OptState, batch: dict,
                    generator: torch.Generator | None = None, *, draws: dict | None = None):
@@ -217,6 +219,7 @@ def finetune(model, pairs: list, *, steps: int = 200, batch_size: int | None = N
     is gathered onto the model's device at the end.  A quantized model is
     refused."""
     _refuse_quantized(model.params["flow_lm"], "finetune")
+    refuse_hybrid(model.config, "training")
     full = make_batch(model, pairs, voice_wav=voice_wav, max_tokens=max_tokens)
     n = len(pairs)
     bsz = min(batch_size or n, n)
@@ -303,6 +306,7 @@ def apply_adapted(model, path):
     (``lora.save_lora_params``)."""
     from pocket_tts_tpu_torch.training.lora import LORA_FORMAT, apply_lora
 
+    refuse_hybrid(model.config, "a fine-tuned or LoRA artifact")
     fmt = weights_mod.read_safetensors_header(path)[1].get("format")
     if fmt == FINETUNED_FORMAT:
         return apply_finetuned(model, path)

@@ -37,6 +37,7 @@ from pocket_tts_tpu_torch.config import (
     DEFAULT_VARIANT,
     Config,
     load_variant,
+    refuse_hybrid,
 )
 from pocket_tts_tpu_torch.runtime.engine import Engine, GenParams, _clone
 
@@ -45,16 +46,19 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass(frozen=True)
 class VoiceState:
-    """Voice snapshot: prefilled KV cache + cursor.  ``length`` mirrors
-    ``pos`` on the host so generation never syncs just to size the cache."""
+    """Voice snapshot: prefilled KV cache + cursor (and a hybrid backbone's
+    conv state ``cs``).  ``length`` mirrors ``pos`` on the host so generation
+    never syncs just to size the cache."""
 
     kc: torch.Tensor
     vc: torch.Tensor
     pos: torch.Tensor
     length: int = 0
+    cs: torch.Tensor | None = None
 
     def as_dict(self) -> dict:
-        return {"kc": self.kc, "vc": self.vc, "pos": self.pos}
+        out = {"kc": self.kc, "vc": self.vc, "pos": self.pos}
+        return out if self.cs is None else {**out, "cs": self.cs}
 
 
 def codec_stage_device(device: torch.device) -> torch.device | None:
@@ -206,6 +210,7 @@ class TTSModel:
         from pocket_tts_tpu_torch.runtime.quantize import load_quantized
 
         cfg, gen, seed, device = cls._parse_loader_kwargs(load_variant(variant), kwargs)
+        refuse_hybrid(cfg, "weight quantization")
         _check_device(device)
         params = load_quantized(weights_mod.resolve_uri(path))
         model = cls(cfg, params, gen=gen, has_real_weights=True, device=device, seed=seed)
@@ -251,7 +256,7 @@ class TTSModel:
             return self.get_voice_state_from_wav(source, truncate=truncate, overflow=overflow)
         if self._empty_voice["vs"] is None:
             st = self.engine.new_state()
-            self._empty_voice["vs"] = VoiceState(st["kc"], st["vc"], st["pos"], 0)
+            self._empty_voice["vs"] = VoiceState(st["kc"], st["vc"], st["pos"], 0, st.get("cs"))
         return self._empty_voice["vs"]
 
     def get_voice_state_from_wav(self, path: str | Path | bytes, truncate: bool = False,
@@ -336,7 +341,7 @@ class TTSModel:
         for off in range(0, n_frames, piece):
             n = min(piece, n_frames - off)
             st = eng.prefill_conditioning(st, cond[:, off:off + n], n)
-        return VoiceState(st["kc"], st["vc"], st["pos"], base_len + n_frames)
+        return VoiceState(st["kc"], st["vc"], st["pos"], base_len + n_frames, st.get("cs"))
 
     def extend_voice_state(self, voice_state: VoiceState, wav: np.ndarray) -> VoiceState:
         """Prefill the conditioning of ``wav`` (24 kHz mono) after the

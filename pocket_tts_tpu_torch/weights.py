@@ -9,6 +9,13 @@ deterministic random init at full width (numpy only), with the same keys,
 shapes and init families as the JAX package's ``random_params``.
 ``hf://owner/repo/file@rev`` URIs resolve through the local Hugging Face
 cache, read by path; nothing is downloaded.
+
+A hybrid FlowLM backbone (``cfg.flow_lm.backbone``, LFM2-MoE) is stored
+under ``flow_lm.backbone.`` with LFM2's own per-layer key names
+(``layers.{i}.operator_norm``, ``conv.in_proj``, ``self_attn.q_proj``,
+``feed_forward.experts.{e}.w1``, ..., ``embedding_norm``) in place of
+``flow_lm.transformer.`` and ``flow_lm.out_norm``; the port stacks them by
+layer kind (``models/lfm2.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pocket_tts_tpu_torch.config import Config
+from pocket_tts_tpu_torch.config import BackboneConfig, Config
 from pocket_tts_tpu_torch.models.mimi import MimiPlans
 
 logger = logging.getLogger(__name__)
@@ -247,12 +254,100 @@ def convert_flow_mlp(sd: dict, prefix: str, depth: int) -> dict:
     }
 
 
+def _lfm2_groups(bb: BackboneConfig) -> dict:
+    """The layer indices behind each stacked leaf of the hybrid backbone."""
+    dense = range(bb.num_dense_layers)
+    return {"all": range(bb.num_hidden_layers), "conv": bb.conv_layers,
+            "attn": bb.attn_layers, "dense": dense,
+            "moe": range(bb.num_dense_layers, bb.num_hidden_layers)}
+
+
+# stacked leaf -> (layer group, per-layer key suffix) of the hybrid backbone
+_LFM2_KEYS = {"op_norm": ("all", "operator_norm.weight"), "ffn_norm": ("all", "ffn_norm.weight"),
+              "conv_in": ("conv", "conv.in_proj.weight"),
+              "conv_out": ("conv", "conv.out_proj.weight"),
+              "attn_out": ("attn", "self_attn.out_proj.weight"),
+              "ff_down": ("dense", "feed_forward.w2.weight"),
+              "router": ("moe", "feed_forward.gate.weight"),
+              "expert_bias": ("moe", "feed_forward.expert_bias")}
+
+
+def convert_lfm2(sd: dict, bb: BackboneConfig, prefix: str = "flow_lm.backbone") -> dict:
+    """LFM2 per-layer keys -> the port's leaves stacked by layer kind."""
+    lp, groups = f"{prefix}.layers", _lfm2_groups(bb)
+    hq, hkv = bb.num_attention_heads, bb.num_key_value_heads
+
+    def st(group: str, suffix: str) -> torch.Tensor:
+        return torch.stack([_t(sd[f"{lp}.{i}.{suffix}"]) for i in groups[group]])
+
+    def bank(name: str) -> torch.Tensor:  # [Lm, E, out, in]
+        return torch.stack([torch.stack([_t(sd[f"{lp}.{i}.feed_forward.experts.{e}.{name}.weight"])
+                                         for e in range(bb.num_experts)])
+                            for i in groups["moe"]])
+
+    p = {name: st(group, suffix) for name, (group, suffix) in _LFM2_KEYS.items()}
+    p["conv_w"] = st("conv", "conv.conv.weight")[:, :, 0]  # depthwise [D, 1, taps]
+    p["qkv"] = torch.cat([st("attn", f"self_attn.{n}_proj.weight") for n in "qkv"], dim=1)
+    p["qk_norm"] = torch.cat([
+        st("attn", "self_attn.q_layernorm.weight")[:, None].expand(-1, hq, -1),
+        st("attn", "self_attn.k_layernorm.weight")[:, None].expand(-1, hkv, -1)], dim=1)
+    p["ff_up"] = torch.cat([st("dense", "feed_forward.w1.weight"),
+                            st("dense", "feed_forward.w3.weight")], dim=1)
+    p["experts_up"] = torch.cat([bank("w1"), bank("w3")], dim=2)
+    p["experts_down"] = bank("w2")
+    p["final_norm"] = _t(sd[f"{prefix}.embedding_norm.weight"])
+    return p
+
+
+def export_lfm2(p: dict, bb: BackboneConfig, prefix: str = "flow_lm.backbone") -> dict:
+    """Inverse of ``convert_lfm2``."""
+    lp, groups = f"{prefix}.layers", _lfm2_groups(bb)
+    hq, d, i_dim = bb.num_attention_heads, bb.hidden_size, bb.intermediate_size
+    f, kv = bb.moe_intermediate_size, bb.num_key_value_heads * bb.head_dim
+    out = {f"{prefix}.embedding_norm.weight": _np(p["final_norm"])}
+
+    def put(group: str, suffix: str, stack) -> None:
+        for j, i in enumerate(groups[group]):
+            out[f"{lp}.{i}.{suffix}"] = stack[j]
+
+    for name, (group, suffix) in _LFM2_KEYS.items():
+        put(group, suffix, _np(p[name]))
+    put("conv", "conv.conv.weight", _np(p["conv_w"])[:, :, None])
+    qkv = _np(p["qkv"])
+    for n, sl in (("q", slice(0, d)), ("k", slice(d, d + kv)), ("v", slice(d + kv, None))):
+        put("attn", f"self_attn.{n}_proj.weight", qkv[:, sl])
+    qk = _np(p["qk_norm"])
+    put("attn", "self_attn.q_layernorm.weight", qk[:, 0])
+    put("attn", "self_attn.k_layernorm.weight", qk[:, hq])
+    up = _np(p["ff_up"])
+    put("dense", "feed_forward.w1.weight", up[:, :i_dim])
+    put("dense", "feed_forward.w3.weight", up[:, i_dim:])
+    eu, ed = _np(p["experts_up"]), _np(p["experts_down"])
+    for j, i in enumerate(groups["moe"]):
+        for e in range(bb.num_experts):
+            ep = f"{lp}.{i}.feed_forward.experts.{e}"
+            out |= {f"{ep}.w1.weight": eu[j, e, :f], f"{ep}.w3.weight": eu[j, e, f:],
+                    f"{ep}.w2.weight": ed[j, e]}
+    return out
+
+
+# the FlowLM's own leaves that a hybrid backbone leaves out (its embedding_norm
+# takes the place of out_norm)
+_OUT_NORM = ("out_norm_w", "out_norm_b")
+
+
 def convert_flow_lm(sd: dict, cfg: Config, prefix: str = "flow_lm") -> dict:
-    tcfg = cfg.flow_lm.transformer
+    bb = cfg.flow_lm.backbone
+    keys = {k: v for k, v in _FLOW_LM_KEYS.items() if bb is None or k not in _OUT_NORM}
+    if bb is None:
+        tcfg = cfg.flow_lm.transformer
+        stack = {"tf": convert_transformer(sd, f"{prefix}.transformer", tcfg.num_layers, False)}
+    else:
+        stack = {"lfm": convert_lfm2(sd, bb, f"{prefix}.backbone")}
     return {
-        "tf": convert_transformer(sd, f"{prefix}.transformer", tcfg.num_layers, False),
+        **stack,
         "flow": convert_flow_mlp(sd, f"{prefix}.flow_net", cfg.flow_lm.flow.depth),
-        **{name: _t(sd[f"{prefix}.{suffix}"]) for name, suffix in _FLOW_LM_KEYS.items()},
+        **{name: _t(sd[f"{prefix}.{suffix}"]) for name, suffix in keys.items()},
     }
 
 
@@ -366,9 +461,15 @@ def export_state_dict(params: dict, cfg: Config) -> dict[str, np.ndarray]:
     only (a QTensor leaf raises TypeError)."""
     fl, mm = params["flow_lm"], params["mimi"]
     plans = MimiPlans(cfg.mimi)
-    return {**export_transformer(fl["tf"], "flow_lm.transformer", False),
+    bb = cfg.flow_lm.backbone
+    if bb is None:
+        backbone = export_transformer(fl["tf"], "flow_lm.transformer", False)
+    else:
+        backbone = export_lfm2(fl["lfm"], bb)
+    keys = {k: v for k, v in _FLOW_LM_KEYS.items() if bb is None or k not in _OUT_NORM}
+    return {**backbone,
             **export_flow_mlp(fl["flow"], "flow_lm.flow_net"),
-            **_export(fl, "flow_lm", _FLOW_LM_KEYS),
+            **_export(fl, "flow_lm", keys),
             **export_seanet(mm["encoder"], "mimi.encoder", plans.encoder),
             **export_seanet(mm["decoder"], "mimi.decoder", plans.decoder),
             **export_transformer(mm["enc_tf"]["layers"], "mimi.encoder_transformer.transformer",
@@ -415,6 +516,52 @@ def _random_transformer(rng, out: dict, prefix: str, n_layers: int, d: int, d_ff
             out[f"{lp}.layer_scale_2.scale"] = np.full(d, layer_scale, np.float32)
 
 
+# the hybrid backbone's expert_bias: uniform(+-EXPERT_BIAS) so that it moves
+# some top-k choices (the sigmoid scores of a random router lie within ~0.1 of
+# each other near the top)
+EXPERT_BIAS = 0.05
+
+
+def _random_lfm2(rng, out: dict, prefix: str, bb: BackboneConfig) -> None:
+    """LFM2-MoE layers in LFM2's key layout: nn.Linear-style uniform
+    weights, unit RMSNorm weights, the depthwise conv uniform(+-1/sqrt(taps)),
+    ``expert_bias`` uniform(+-EXPERT_BIAS)."""
+    d, hd = bb.hidden_size, bb.head_dim
+    kv = bb.num_key_value_heads * hd
+
+    def lin(shape):
+        return _linear_init(rng, shape)
+
+    for i, kind in enumerate(bb.layer_types):
+        lp = f"{prefix}.layers.{i}"
+        out[f"{lp}.operator_norm.weight"] = np.ones(d, np.float32)
+        out[f"{lp}.ffn_norm.weight"] = np.ones(d, np.float32)
+        if kind == "conv":
+            out[f"{lp}.conv.in_proj.weight"] = lin((3 * d, d))
+            out[f"{lp}.conv.conv.weight"] = lin((d, 1, bb.conv_L_cache))
+            out[f"{lp}.conv.out_proj.weight"] = lin((d, d))
+        else:
+            for n, rows in (("q", d), ("k", kv), ("v", kv), ("out", d)):
+                out[f"{lp}.self_attn.{n}_proj.weight"] = lin((rows, d))
+            out[f"{lp}.self_attn.q_layernorm.weight"] = np.ones(hd, np.float32)
+            out[f"{lp}.self_attn.k_layernorm.weight"] = np.ones(hd, np.float32)
+        ff = f"{lp}.feed_forward"
+        if i < bb.num_dense_layers:
+            i_dim = bb.intermediate_size
+            out |= {f"{ff}.w1.weight": lin((i_dim, d)), f"{ff}.w3.weight": lin((i_dim, d)),
+                    f"{ff}.w2.weight": lin((d, i_dim))}
+        else:
+            f = bb.moe_intermediate_size
+            out[f"{ff}.gate.weight"] = lin((bb.num_experts, d))
+            out[f"{ff}.expert_bias"] = rng.uniform(-EXPERT_BIAS, EXPERT_BIAS,
+                                                   bb.num_experts).astype(np.float32)
+            for e in range(bb.num_experts):
+                out |= {f"{ff}.experts.{e}.w1.weight": lin((f, d)),
+                        f"{ff}.experts.{e}.w3.weight": lin((f, d)),
+                        f"{ff}.experts.{e}.w2.weight": lin((d, f))}
+    out[f"{prefix}.embedding_norm.weight"] = np.ones(d, np.float32)
+
+
 def _random_conv(rng, out: dict, name: str, spec, transposed: bool = False) -> None:
     if transposed:
         fan_in = spec.out_channels // spec.groups * spec.kernel_size
@@ -446,8 +593,8 @@ def random_state_dict(cfg: Config, seed: int = 0) -> dict[str, np.ndarray]:
     ``export_state_dict(random_params(...))`` (torch nn.Linear-style uniform
     bounds, unit norms, zero biases, normal embeddings)."""
     rng = np.random.default_rng(seed)
-    tcfg = cfg.flow_lm.transformer
-    d, ldim = tcfg.d_model, cfg.mimi.quantizer.dimension
+    tcfg, bb = cfg.flow_lm.transformer, cfg.flow_lm.backbone
+    d, ldim = cfg.flow_lm.d_model, cfg.mimi.quantizer.dimension
     fdim, depth = cfg.flow_lm.flow.dim, cfg.flow_lm.flow.depth
 
     def lin(shape):
@@ -460,8 +607,11 @@ def random_state_dict(cfg: Config, seed: int = 0) -> dict[str, np.ndarray]:
         return np.ones(shape, np.float32)
 
     out: dict[str, np.ndarray] = {}
-    _random_transformer(rng, out, "flow_lm.transformer", tcfg.num_layers, d,
-                        tcfg.dim_feedforward, None)
+    if bb is None:
+        _random_transformer(rng, out, "flow_lm.transformer", tcfg.num_layers, d,
+                            tcfg.dim_feedforward, None)
+    else:
+        _random_lfm2(rng, out, "flow_lm.backbone", bb)
     fp = "flow_lm.flow_net"
     for j in (0, 1):
         te = f"{fp}.time_embed.{j}.mlp"
@@ -482,8 +632,9 @@ def random_state_dict(cfg: Config, seed: int = 0) -> dict[str, np.ndarray]:
                 f"{rb}.adaLN_modulation.1.weight": lin((3 * fdim, fdim)),
                 f"{rb}.adaLN_modulation.1.bias": zeros(3 * fdim)}
     lt = cfg.flow_lm.lookup_table
+    if bb is None:
+        out |= {"flow_lm.out_norm.weight": ones(d), "flow_lm.out_norm.bias": zeros(d)}
     out |= {"flow_lm.input_linear.weight": lin((d, ldim)),
-            "flow_lm.out_norm.weight": ones(d), "flow_lm.out_norm.bias": zeros(d),
             "flow_lm.out_eos.weight": lin((1, d)), "flow_lm.out_eos.bias": zeros(1),
             "flow_lm.bos_emb": rng.standard_normal(ldim).astype(np.float32),
             "flow_lm.emb_std": ones(ldim), "flow_lm.emb_mean": zeros(ldim),
